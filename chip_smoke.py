@@ -6,11 +6,18 @@
 Phases, one JSON line each:
 
 1. card identity (nvidia-smi name and power limit, torch's device name);
-2. build of the traversal kernels from ``src/repro_torch/csrc`` (nvcc);
+2. build of the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+   source, all started together);
 3. small check: foresight and base skiplists (n=4000, cap=8192, L=14)
    built on the card equal their CPU builds, and K1 / K2 equal their plain
    versions on a half-hit, half-miss batch;
-4. the paper's configuration, once per variant: 2^25 keys drawn from
+4. small update check, same size: a 2000-op mixed stream through
+   ``apply_ops`` on the card equals the CPU run in every state array and
+   result (both variants) and leaves its input unchanged; K8 equals its
+   plain version on a clean, a 40%-corrupted and a lag-1 table, at the
+   default step cap and at 9 steps; after an insert-only batch, lag-1
+   reads answer for the stale key set;
+5. the paper's configuration, once per variant: 2^25 keys drawn from
    [0, 2^26) (Synchrobench: key range twice the size), vals = keys + 1,
    27 levels, capacity 2^26, built on the card with
    ``repro_torch.core.skiplist.build``; 2^20 uniform lookups through
@@ -18,7 +25,14 @@ Phases, one JSON line each:
    membership oracle; the kernel held against its plain version on the
    same 2^20 queries; kernel, plain and ``torch.searchsorted`` times
    (median of CUDA-event timings) and the byte bound of the batch's paths;
-5. the ``kernels`` line: every ported kernel with its main-path launches.
+6. updates and versioned reads at the same size: the foresight build in a
+   ``VersionedIndex``, ``update`` with 1024 ops of fig3's upd=50% mix
+   (each result held against a host oracle, then the foresight invariant),
+   2^20 lag-1 reads through K8 (``search(lag=1, use_kernel=True)``) and
+   lag-0 reads through ``search`` and K1, held against the oracle, the
+   plain K8 and ``search_validated``; K8's times, bound, path lengths and
+   the queries its ``4L+16`` step cap cuts;
+7. the ``kernels`` line: every ported kernel with its main-path launches.
 
 Then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check, build or launch raises, and the script exits non-zero.
@@ -37,8 +51,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import skiplist as sl  # noqa: E402
+from repro_torch.core.validated import search_validated  # noqa: E402
+from repro_torch.core.versioned import VersionedIndex  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import foresight_traverse as ft  # noqa: E402
+from repro_torch.kernels import validated_traverse as vt  # noqa: E402
 
 SEED = 0
 # benchmarks/fig4_batch_sweep.py:3-4 (2^25 elements), benchmarks/common.py
@@ -50,12 +67,19 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 peak
 KERNEL_REPS, PLAIN_REPS = 20, 5
-CUDA_SOURCE = "src/repro_torch/csrc/traverse.cu"
-KERNELS = {   # name -> (wrapper, plain version, TPU kernel it replaces)
+# benchmarks/fig3_sequential.py at upd=50% (benchmarks/common.py:63-73):
+# 25% insert, 25% delete, 50% read, keys uniform over the key range
+UPDATE_OPS = 1024
+TRAVERSE_CU = "src/repro_torch/csrc/traverse.cu"
+KERNELS = {   # name -> (wrapper, plain version, source, TPU kernel replaced)
     "foresight_traverse": (ft.foresight_traverse, ft.foresight_traverse_plain,
+                           TRAVERSE_CU,
                            "src/repro/kernels/foresight_traverse.py:303"),
-    "base_traverse": (ft.base_traverse, ft.base_traverse_plain,
+    "base_traverse": (ft.base_traverse, ft.base_traverse_plain, TRAVERSE_CU,
                       "src/repro/kernels/foresight_traverse.py:698"),
+    "validated_traverse": (vt.validated_traverse, vt.validated_traverse_plain,
+                           "src/repro_torch/csrc/validated_traverse.cu",
+                           "src/repro/kernels/validated_traverse.py:60"),
 }
 
 
@@ -69,8 +93,12 @@ def check(ok: bool, what: str) -> None:
 
 
 def reset_launches() -> None:
-    for wrapper, _, _ in KERNELS.values():
+    for wrapper, *_ in KERNELS.values():
         wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: w.launches for name, (w, *_) in KERNELS.items()}
 
 
 def table_args(st: sl.SkipListState):
@@ -179,7 +207,7 @@ def small_check() -> None:
             if t is not None:
                 check(torch.equal(t.cpu(), getattr(cpu, name)),
                       f"card build equals CPU build ({name})")
-        wrapper, plain, _ = KERNELS[kernel_name(st)]
+        wrapper, plain, *_ = KERNELS[kernel_name(st)]
         before = wrapper.launches
         got = wrapper(*table_args(st), q)
         want = plain(*table_args(st), q)
@@ -188,6 +216,320 @@ def small_check() -> None:
         check(err == 0, f"{kernel_name(st)} equals its plain version")
         report[kernel_name(st)] = {"max_abs_err": err}
     emit(report)
+
+
+def small_keys() -> np.ndarray:
+    rng = np.random.default_rng(SEED)
+    return np.sort(rng.choice(1 << 22, SMALL["n"], replace=False)
+                   ).astype(np.int32)
+
+
+def mixed_ops(keys: np.ndarray, n: int, span: int, seed: int):
+    """(op types, keys, vals) of a read/insert/delete stream; deletes and
+    half the reads name present keys, inserts uniform keys."""
+    rng = np.random.default_rng(seed)
+    types = rng.choice(np.array([sl.OP_READ, sl.OP_INSERT, sl.OP_DELETE],
+                                np.int32), n)
+    ks = np.where((types == sl.OP_DELETE) | (rng.random(n) < 0.5),
+                  rng.choice(keys, n), rng.integers(0, span, n))
+    ks = ks.astype(np.int32)
+    return types, ks, ks + 1
+
+
+def on(dev, *arrays):
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def check_same_state(got: sl.SkipListState, want: sl.SkipListState,
+                     what: str) -> None:
+    for name, t in got._asdict().items():
+        if t is not None:
+            check(torch.equal(t.cpu(), getattr(want, name).cpu()),
+                  f"{what} ({name})")
+
+
+def check_k8(fused, auth, q, report: dict, label: str) -> None:
+    """K8 equals its plain version bit for bit, at the default step cap and
+    at a truncating one."""
+    for max_steps in (0, 9):
+        got = vt.validated_traverse(fused, auth, q, max_steps=max_steps)
+        want = vt.validated_traverse_plain(fused, auth, q,
+                                           max_steps=max_steps)
+        err = max_abs_err(got, want)
+        check(err == 0, f"K8 equals its plain version ({label}, "
+                        f"max_steps={max_steps})")
+        report[f"k8_{label}_max_steps_{max_steps}_err"] = err
+
+
+def small_update_check() -> None:
+    """The write side on the card equals the CPU; K8 equals its plain
+    version on a clean, a corrupted and a lag-1 table; insert-only lag-1
+    reads answer for the stale key set."""
+    keys = small_keys()
+    args = dict(capacity=SMALL["capacity"], levels=SMALL["levels"],
+                seed=SEED)
+    stream = mixed_ops(keys, 2000, 1 << 22, SEED + 3)
+    report = {"phase": "small_update_check", **SMALL, "ops": 2000}
+    t_phase = t0 = time.perf_counter()
+    for foresight in (True, False):
+        st = sl.build(keys, keys + 1, foresight=foresight, device=DEVICE,
+                      **args)
+        cpu = sl.build(keys, keys + 1, foresight=foresight, device="cpu",
+                       **args)
+        new, res = sl.apply_ops(st, *on(DEVICE, *stream))
+        new_cpu, res_cpu = sl.apply_ops(cpu, *on("cpu", *stream))
+        check(torch.equal(res.cpu(), res_cpu), "apply_ops results, card "
+              "equals CPU")
+        check_same_state(new, new_cpu, "apply_ops state, card equals CPU")
+        check_same_state(st, sl.build(keys, keys + 1, foresight=foresight,
+                                      device="cpu", **args),
+                         "apply_ops leaves its input unchanged")
+        report[f"{'foresight' if foresight else 'base'}_results"] = \
+            int(res.sum())
+    report["apply_ops_s"] = time.perf_counter() - t0
+
+    st = sl.build(keys, keys + 1, device=DEVICE, **args)
+    rng = np.random.default_rng(SEED + 4)
+    q, = on(DEVICE, np.concatenate([rng.choice(keys, 2048), rng.integers(
+        0, 1 << 22, 2048)]).astype(np.int32))
+    check_k8(st.fused, st.keys, q, report, "clean")
+    fused = st.fused.cpu().numpy().copy()       # a copy, on any device
+    fused[..., 1] = np.where(rng.random(fused.shape[:2]) < 0.4,
+                             rng.integers(-2**31 + 1, 2**31 - 1,
+                                          fused.shape[:2]), fused[..., 1])
+    check_k8(on(DEVICE, fused)[0], st.keys, q, report, "corrupt40")
+    vi = VersionedIndex(st)
+    vi.update(*on(DEVICE, *stream))
+    view = vi.read_view(lag=1)
+    check_k8(view.fused, view.auth_keys, q, report, "lag1")
+
+    vi = VersionedIndex(st)
+    newk = rng.integers(0, 1 << 22, 512).astype(np.int32)
+    vi.update(*on(DEVICE, np.full(512, sl.OP_INSERT, np.int32), newk,
+                  newk + 1))
+    q2 = torch.cat([q, on(DEVICE, newk)[0]])
+    stale = np.isin(q2.cpu().numpy(), keys)
+    for use_kernel in (True, False):
+        found = vi.search(q2, lag=1, use_kernel=use_kernel).found
+        check(np.array_equal(found.cpu().numpy(), stale),
+              f"insert-only lag-1 read is stale membership "
+              f"(use_kernel={use_kernel})")
+    report["insert_only_stale_hits"] = int(stale.sum())
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+
+
+def synchrobench_ops(n: int, seed: int):
+    """fig3_sequential's upd=50% mix: 25% insert, 25% delete, 50% read,
+    keys uniform over [0, FULL_SPAN), inserted vals = key + 1."""
+    rng = np.random.default_rng(seed)
+    u = rng.random(n)
+    types = np.where(u < 0.25, sl.OP_INSERT,
+                     np.where(u < 0.5, sl.OP_DELETE, sl.OP_READ))
+    ks = rng.integers(0, FULL_SPAN, n).astype(np.int32)
+    return types.astype(np.int32), ks, ks + 1
+
+
+def host_oracle(keys_np: np.ndarray, types, ks):
+    """Per-op results of the stream on the sorted keys, and the key set
+    after it."""
+    idx = np.minimum(np.searchsorted(keys_np, ks), len(keys_np) - 1)
+    present = dict(zip(ks.tolist(), (keys_np[idx] == ks).tolist()))
+    results = []
+    for t, k in zip(types.tolist(), ks.tolist()):
+        p = present[k]
+        if t == sl.OP_INSERT:
+            present[k] = True
+        elif t == sl.OP_DELETE:
+            present[k] = False
+        results.append(int(not p if t == sl.OP_INSERT else p))
+    gone = [k for k, v in present.items() if not v]
+    new = [k for k, v in present.items() if v]
+    current = np.union1d(np.setdiff1d(keys_np, gone), new).astype(np.int32)
+    return np.array(results, np.int32), current
+
+
+def check_lookups(found, vals, q_np, keys_np, what: str) -> None:
+    idx = np.minimum(np.searchsorted(keys_np, q_np), len(keys_np) - 1)
+    hit = keys_np[idx] == q_np
+    check(np.array_equal(found.cpu().numpy(), hit), f"{what}: found")
+    check(np.array_equal(vals.cpu().numpy(),
+                         np.where(hit, q_np + 1, sl.NULL_VAL)),
+          f"{what}: vals")
+
+
+def validated_footprint(fused, auth, q, max_steps: int) -> dict:
+    """What K8 reads on this batch, and each query's untruncated path.
+
+    Replays the validated traversal with plain tensor ops.  Up to
+    ``max_steps`` it keeps every fused record index each active lane reads
+    and every ``auth`` index the kernel loads (level 0, and above it only
+    where the foreseen key says advance), plus the final level-0 record
+    and its key.  Past ``max_steps`` it only counts steps, for the path
+    lengths the cap cuts.
+    """
+    L, cap, _ = fused.shape
+    flat = fused.view(-1, 2)
+    x = torch.zeros_like(q)
+    lvl = torch.full_like(q, L - 1)
+    path = torch.zeros_like(q)
+    rec_idx, key_idx, loads, step = [], [], 0, 0
+    x_at_cap = x
+    while bool((lvl >= 0).any()):
+        active = lvl >= 0
+        idx = lvl.clamp(min=0).long() * cap + x.long()
+        ptr, fk = flat[idx].unbind(1)
+        need = active & ((lvl == 0) | (fk < q))
+        go = need & (auth[ptr.long()] < q)
+        if step < max_steps:
+            rec_idx.append(idx[active])
+            key_idx.append(ptr[need].long())
+            loads += int(active.sum()) + int(need.sum())
+        path += active.int()
+        x = torch.where(go, ptr, x)
+        lvl = torch.where(go | ~active, lvl, lvl - 1)
+        step += 1
+        if step == max_steps:
+            x_at_cap = x
+    if step < max_steps:
+        x_at_cap = x
+    rec_idx.append(x_at_cap.long())
+    key_idx.append(flat[x_at_cap.long(), 0].long())
+    arrays = [(torch.cat(rec_idx), 8), (torch.cat(key_idx), 4)]
+    return dict(
+        distinct_bytes=sum(int(torch.unique(i).numel()) * b
+                           for i, b in arrays),
+        sector_bytes=sum(int(torch.unique(i * b // 32).numel()) * 32
+                         for i, b in arrays),
+        loads=loads, path=path)
+
+
+def versioned_full_size(keys_np: np.ndarray, q_np: np.ndarray) -> dict:
+    """Updates and mixed-view reads at the paper's size: build, one update
+    batch through ``VersionedIndex.update``, then 2^20 lag-1 reads through
+    K8 and lag-0 reads through ``search`` and K1, each held against a host
+    oracle."""
+    stage_s, t_stage = {}, time.perf_counter()
+    t_phase = t_stage
+
+    def lap(stage: str) -> None:
+        """Seconds since the last lap, device work included."""
+        nonlocal t_stage
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage_s[stage] = now - t_stage
+        t_stage = now
+
+    dev = torch.device(DEVICE)
+    types, ks, vs = synchrobench_ops(UPDATE_OPS, SEED + 2)
+    want_results, current = host_oracle(keys_np, types, ks)
+    lap("host_oracle")
+    q = torch.from_numpy(q_np).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+
+    # The main path, with every launch counter at 0 just before it.
+    reset_launches()
+    t0 = time.perf_counter()
+    vi = VersionedIndex(sl.build(torch.from_numpy(keys_np).to(dev),
+                                 torch.from_numpy(keys_np + 1).to(dev),
+                                 capacity=FULL_CAP, levels=FULL_LEVELS,
+                                 seed=SEED, device=dev))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = vi.update(*on(dev, types, ks, vs))
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    lag1 = vi.search(q, lag=1, use_kernel=True)
+    lag0 = vi.search(q, lag=0)
+    k1 = ops.search_kernel(vi.current, q)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    lap("main_path")
+    for name in ("validated_traverse", "foresight_traverse"):
+        check(launches[name] >= 1, f"versioned path launched {name}")
+
+    check(np.array_equal(results.cpu().numpy(), want_results),
+          "every apply_ops result equals the oracle")
+    check(bool(sl.check_foresight_invariant(vi.current)),
+          "foresight invariant holds after the update")
+    check_lookups(lag0.found, lag0.vals, q_np, current, "lag-0 search")
+    check_lookups(k1.found, k1.vals, q_np, current, "K1 on vi.current")
+    n_live = int(vi.current.n)
+    live_keys = sl.sorted_live_kv(vi.current)[0][:n_live]
+    check(np.array_equal(live_keys.cpu().numpy(), current),
+          "sorted_live_kv equals the oracle's key set")
+    lap("oracle_checks")
+
+    view = vi.read_view(lag=1)
+    fused, auth = view.fused, view.auth_keys
+    max_steps = vt.default_max_steps(FULL_LEVELS)
+    fp = validated_footprint(fused, auth, q, max_steps)
+    cut = fp["path"] > max_steps
+    lap("footprint_replay")
+    got = vt.validated_traverse(fused, auth, q)
+    err = max_abs_err(got, vt.validated_traverse_plain(fused, auth, q))
+    check(err == 0, "K8 equals its plain version at full size")
+    check(torch.equal(got[0], lag1.node), "K8 node is the lag-1 read's")
+    ref = search_validated(fused, auth, view.vals, q)
+    keep = ~cut                # a lane cut at max_steps has no equal there
+    check(torch.equal(lag1.found[keep], ref.found[keep]),
+          "K8 found equals search_validated")
+    check(torch.equal(lag1.vals[keep], ref.vals[keep]),
+          "K8 vals equals search_validated")
+    hit = keep & ref.found
+    check(torch.equal(lag1.node[hit], ref.node[hit]),
+          "K8 node equals search_validated where found")
+    lap("k8_checks")
+
+    kernel_ms = time_ms(lambda: vt.validated_traverse(fused, auth, q),
+                        KERNEL_REPS)
+    plain_ms = time_ms(lambda: vt.validated_traverse_plain(fused, auth, q),
+                       PLAIN_REPS)
+    library_ms = time_ms(lambda: torch.searchsorted(live_keys, q),
+                         KERNEL_REPS)
+    k1_ms = time_ms(lambda: ft.foresight_traverse(vi.current.fused, q),
+                    KERNEL_REPS)
+    lap("timing")
+    io_bytes = q.numel() * 4 * 3             # queries in, node + key out
+    bytes_ms = (fp["distinct_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = fp["loads"] / SCALAR_OPS_PER_S * 1e3   # one compare a load
+    bound_ms = max(bytes_ms, ops_ms)
+    wrapper, plain, source, replaces = KERNELS["validated_traverse"]
+    row = {"name": "validated_traverse", "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches["validated_traverse"],
+           "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms,
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": library_ms}
+    emit({"phase": "versioned_full_size", "n": FULL_N, "levels": FULL_LEVELS,
+          "capacity": FULL_CAP, "batch": q.numel(), "update_ops": UPDATE_OPS,
+          "op_mix": "25% insert, 25% delete, 50% read",
+          "results_by_op": {t: int(want_results[types == code].sum())
+                            for t, code in (("read_hits", sl.OP_READ),
+                                            ("inserted", sl.OP_INSERT),
+                                            ("deleted", sl.OP_DELETE))},
+          "build_s": build_s, "update_s": update_s,
+          "update_us_per_op": update_s / UPDATE_OPS * 1e6,
+          "n_after": n_live, "lag0_hits": int(lag0.found.sum()),
+          "lag1_hits": int(lag1.found.sum()), **row,
+          "mops": q.numel() / kernel_ms / 1e3,
+          "k8_over_k1_ms": kernel_ms / k1_ms,
+          "validation_load": "on level 0, and above it only on a foreseen "
+                             "advance",
+          "mean_path_steps": float(fp["path"].float().mean()),
+          "max_path_steps": int(fp["path"].max()), "max_steps": max_steps,
+          "queries_over_max_steps": int(cut.sum()),
+          "distinct_bytes": fp["distinct_bytes"],
+          "sector_bytes": fp["sector_bytes"],
+          "sector_bound_ms": (fp["sector_bytes"] + io_bytes)
+          / HBM_BYTES_PER_S * 1e3,
+          "bound_share": bound_ms / kernel_ms,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "stage_s": stage_s, "seconds": time.perf_counter() - t_phase})
+    del vi, view, fused, auth, lag0, lag1, k1, ref, live_keys
+    torch.cuda.empty_cache()
+    return row
 
 
 def full_size(keys_np: np.ndarray, q_np: np.ndarray, foresight: bool) -> dict:
@@ -208,18 +550,13 @@ def full_size(keys_np: np.ndarray, q_np: np.ndarray, foresight: bool) -> dict:
     res = ops.search_kernel(st, q)
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
-    launches = {name: w.launches for name, (w, _, _) in KERNELS.items()}
+    launches = read_launches()
     name = kernel_name(st)
     check(launches[name] >= 1, f"main path launched {name}")
 
-    idx = np.minimum(np.searchsorted(keys_np, q_np), len(keys_np) - 1)
-    hit = keys_np[idx] == q_np
-    check(np.array_equal(res.found.cpu().numpy(), hit), "found == oracle")
-    check(np.array_equal(res.vals.cpu().numpy(),
-                         np.where(hit, q_np + 1, sl.NULL_VAL)),
-          "vals == oracle")
+    check_lookups(res.found, res.vals, q_np, keys_np, "search_kernel")
 
-    wrapper, plain, replaces = KERNELS[name]
+    wrapper, plain, source, replaces = KERNELS[name]
     tables = table_args(st)
     err = max_abs_err(wrapper(*tables, q), plain(*tables, q))
     check(err == 0, f"{name} equals its plain version at full size")
@@ -233,7 +570,7 @@ def full_size(keys_np: np.ndarray, q_np: np.ndarray, foresight: bool) -> dict:
     bytes_ms = (fp["distinct_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = fp["steps"] / SCALAR_OPS_PER_S * 1e3   # one compare a step
     bound_ms = max(bytes_ms, ops_ms)
-    row = {"name": name, "route": "cuda", "source": CUDA_SOURCE,
+    row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches[name],
            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms,
@@ -243,7 +580,7 @@ def full_size(keys_np: np.ndarray, q_np: np.ndarray, foresight: bool) -> dict:
           "capacity": FULL_CAP, "batch": q.numel(),
           "table_gb": ops.tile_bytes(FULL_LEVELS, FULL_CAP, foresight) / 1e9,
           "build_s": build_s, "search_kernel_s": search_s,
-          "hits": int(hit.sum()), **row,
+          "hits": int(res.found.sum()), **row,
           "mops": q.numel() / kernel_ms / 1e3,
           "mean_path_steps": fp["steps"] / q.numel(),
           "distinct_bytes": fp["distinct_bytes"],
@@ -265,6 +602,7 @@ def main() -> None:
     smi = card_identity()
     build_kernels()
     small_check()
+    small_update_check()
     rng = np.random.default_rng(SEED)
     keys_np = np.sort(rng.choice(FULL_SPAN, FULL_N, replace=False))
     keys_np = keys_np.astype(np.int32)
@@ -273,6 +611,7 @@ def main() -> None:
     rows = [full_size(keys_np, q_np, foresight) for foresight in (True, False)]
     emit({"phase": "ratio",
           "foresight_over_base_ms": rows[0]["ms"] / rows[1]["ms"]})
+    rows.append(versioned_full_size(keys_np, q_np))
     emit({"kernels": rows})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

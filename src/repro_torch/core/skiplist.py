@@ -315,3 +315,245 @@ def _scatter_rows(preds: torch.Tensor, lvl: torch.Tensor, x: torch.Tensor,
     rows = torch.nonzero(mask).squeeze(1)
     preds[rows, lvl[rows].long()] = x[rows]
     return preds
+
+
+# ---------------------------------------------------------------------------
+# Single-element insert / delete
+# ---------------------------------------------------------------------------
+#
+# ``repro`` updates functionally: every update returns a new state and the
+# old one stays readable, which ``core.versioned`` relies on to keep stale
+# versions for mixed-view reads.  Here the public ``insert`` / ``delete`` /
+# ``apply_ops`` never modify their input state either: each clones the
+# state's tensors once (``apply_ops`` once per batch) and then updates the
+# clone in place op by op through the ``_*_inplace`` helpers.
+#
+# The reference is branch-free (``jnp.where`` over every level, with
+# out-of-range scatters dropped); the port branches on the host instead and
+# writes only what changes, which gives the same arrays.  In particular an
+# insert into a full list (free list empty, ``bump == capacity``) writes
+# nothing: its would-be node id is ``capacity``, which must never index.
+
+def _clone(state: SkipListState) -> SkipListState:
+    return SkipListState(*(None if t is None else t.clone() for t in state))
+
+
+def _to_i32(v) -> int:
+    """A key or value as the int32 the reference casts it to (wrapping)."""
+    return int(torch.as_tensor(v).to(torch.int32))
+
+
+def _alloc(state: SkipListState) -> Tuple[int, bool]:
+    """Pop a node id from the free list, else bump, in place: (id, ok).
+
+    With neither (free list empty, ``bump == capacity``) it returns
+    ``(capacity, False)`` and changes nothing.
+    """
+    top = int(state.free_top)
+    if top > 0:
+        state.free_top.sub_(1)
+        return int(state.free_list[top - 1]), True
+    bump = int(state.bump)
+    if bump < state.capacity:
+        state.bump.add_(1)
+    return bump, bump < state.capacity
+
+
+def _locate(state: SkipListState, key: int):
+    """(found, node, preds [L]) of one key, through the eager ``search``."""
+    res = search(state, torch.tensor([key], dtype=torch.int32,
+                                     device=state.device))
+    return bool(res.found[0]), int(res.node[0]), res.preds[0].long()
+
+
+def _insert_inplace(state: SkipListState, key: int, val: int
+                    ) -> Tuple[SkipListState, bool]:
+    """Insert (upsert) into ``state``'s own tensors; (state, inserted_new).
+
+    The rng key advances on every call, as in the reference: after an
+    upsert and after an insert that finds no free slot too.
+    """
+    found, node, preds = _locate(state, key)
+    rng, sub = prng.split(state.rng)
+    state = state._replace(rng=rng)
+    if found:                                   # upsert: overwrite the value
+        state.vals[node] = val
+        return state, False
+    nid, ok = _alloc(state)
+    if not ok:
+        return state, False
+    h = int(sample_heights(sub, (), state.levels))
+    lv = torch.arange(h, device=state.device)   # the levels to splice
+    p = preds[:h]
+    if state.foresight:
+        # The new node inherits each predecessor's (next_ptr, next_key)
+        # pair; the predecessor gets (new node, key), both halves at once.
+        state.fused[lv, nid] = state.fused[lv, p]
+        state.fused[lv, p] = torch.tensor([nid, key], dtype=torch.int32,
+                                          device=state.device)
+    else:
+        state.nxt[lv, nid] = state.nxt[lv, p]
+        state.nxt[lv, p] = nid
+    state.keys[nid] = key
+    state.vals[nid] = val
+    state.height[nid] = h
+    state.n.add_(1)
+    return state, True
+
+
+def _delete_inplace(state: SkipListState, key: int
+                    ) -> Tuple[SkipListState, bool]:
+    """Delete from ``state``'s own tensors; (state, deleted).
+
+    Each predecessor takes over the deleted node's pair at that level.  The
+    slot goes on the free list; its stale records stay until reuse.
+    """
+    found, d, preds = _locate(state, key)
+    if not found:
+        return state, False
+    h = int(state.height[d])
+    lv = torch.arange(h, device=state.device)
+    table = state.fused if state.foresight else state.nxt
+    table[lv, preds[:h]] = table[lv, d]
+    state.free_list[int(state.free_top)] = d
+    state.free_top.add_(1)
+    state.keys[d] = KEY_MAX
+    state.height[d] = 0
+    state.n.sub_(1)
+    return state, True
+
+
+def insert(state: SkipListState, key, val) -> Tuple[SkipListState,
+                                                    torch.Tensor]:
+    """Insert (upsert) one key: (new state, inserted_new [] bool).
+
+    ``state`` is left unchanged.  A full list (no free slot) inserts
+    nothing and reports False; the rng key still advances.
+    """
+    st, ok = _insert_inplace(_clone(state), _to_i32(key), _to_i32(val))
+    return st, torch.tensor(ok, device=state.device)
+
+
+def delete(state: SkipListState, key) -> Tuple[SkipListState, torch.Tensor]:
+    """Delete one key: (new state, deleted [] bool).  ``state`` is left
+    unchanged."""
+    st, ok = _delete_inplace(_clone(state), _to_i32(key))
+    return st, torch.tensor(ok, device=state.device)
+
+
+# ---------------------------------------------------------------------------
+# Batched (linearized) update application
+# ---------------------------------------------------------------------------
+
+OP_READ, OP_INSERT, OP_DELETE = 0, 1, 2
+
+
+def apply_ops(state: SkipListState, op_types, keys, vals
+              ) -> Tuple[SkipListState, torch.Tensor]:
+    """Apply a linearized batch of mixed ops: (new state, results [B] int32).
+
+    ``results`` is each op's outcome as 0/1: found (read), inserted new
+    (insert), deleted (delete).  The batch linearizes in order, like the
+    reference's ``lax.scan``.  ``state`` is left unchanged: its tensors are
+    cloned once for the batch and the clone is updated in place.  As
+    ``lax.switch`` does, an op type below 0 runs as a read and one above 2
+    as a delete.
+
+    The ops run one after another on the host, each through the eager
+    ``search`` with its per-step host sync, so an op costs milliseconds on
+    a card at large sizes.
+    """
+    host = [torch.as_tensor(a).to(torch.int32).cpu().tolist()
+            for a in (op_types, keys, vals)]
+    st = _clone(state)
+    results = []
+    for t, k, v in zip(*host):
+        t = min(max(t, OP_READ), OP_DELETE)
+        if t == OP_READ:
+            ok = _locate(st, k)[0]
+        elif t == OP_INSERT:
+            st, ok = _insert_inplace(st, k, v)
+        else:
+            st, ok = _delete_inplace(st, k)
+        results.append(int(ok))
+    return st, torch.tensor(results, dtype=torch.int32, device=st.device)
+
+
+# ---------------------------------------------------------------------------
+# Introspection / invariants
+# ---------------------------------------------------------------------------
+
+def check_foresight_invariant(state: SkipListState) -> torch.Tensor:
+    """True iff every live fused record has next_key == keys[next_ptr].
+
+    Checked one level at a time (the reference gathers the whole table at
+    once, which at 27 levels x 2^26 slots would need ~30 GB of
+    temporaries); the answer is the same [] bool.
+    """
+    if not state.foresight:
+        raise ValueError("check_foresight_invariant needs a foresight state")
+    ok = torch.ones((), dtype=torch.bool, device=state.device)
+    for lvl in range(state.levels):
+        ptr, fk = state.fused[lvl].unbind(1)
+        live = state.height > lvl
+        live[HEAD] = True
+        ok &= torch.where(live, fk == state.keys[ptr.long()], True).all()
+    return ok
+
+
+def sorted_live_kv(state: SkipListState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Live (key, val) pairs in key order, padded to ``capacity - 2``.
+
+    Unused, deleted and tail slots hold ``KEY_MAX`` and the head
+    ``KEY_MIN``, so one stable sort puts the live run at positions
+    ``1 .. n``; everything past ``state.n`` is padding.
+    """
+    cap = state.capacity
+    order = torch.argsort(state.keys, stable=True)
+    return state.keys[order][1:cap - 1], state.vals[order][1:cap - 1]
+
+
+def _level0_record(state: SkipListState, x: int) -> Tuple[int, int]:
+    """(next_ptr, next_key) of node ``x`` on level 0."""
+    if state.foresight:
+        ptr, key = state.fused[0, x].tolist()
+        return ptr, key
+    ptr = int(state.nxt[0, x])
+    return ptr, int(state.keys[ptr])
+
+
+def to_sorted_keys(state: SkipListState, max_n: int) -> torch.Tensor:
+    """Walk level 0 and return keys in order (KEY_MAX padded), for tests."""
+    out, x = [], HEAD
+    for _ in range(max_n):
+        x, key = _level0_record(state, x)
+        out.append(key)
+    return torch.tensor(out, dtype=torch.int32, device=state.device)
+
+
+def range_scan(state: SkipListState, lo, hi, max_out: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Up to ``max_out`` (key, val) pairs with lo <= key < hi.
+
+    Positions with a search for ``lo``, then walks level 0.  Returns (keys
+    [max_out], vals [max_out], count []); unused slots hold KEY_MAX /
+    NULL_VAL.
+    """
+    lo, hi = _to_i32(lo), _to_i32(hi)
+    res = search(state, torch.tensor([lo], dtype=torch.int32,
+                                     device=state.device))
+    x = int(res.preds[0, 0])                  # level-0 predecessor of lo
+    keys_out, vals_out = [], []
+    while len(keys_out) < max_out:
+        ptr, key = _level0_record(state, x)
+        if not lo <= key < hi:                # the reference stops here too
+            break
+        keys_out.append(key)
+        vals_out.append(int(state.vals[ptr]))
+        x = ptr
+    count = len(keys_out)
+    pad = max_out - count
+    i32 = dict(dtype=torch.int32, device=state.device)
+    return (torch.tensor(keys_out + [KEY_MAX] * pad, **i32),
+            torch.tensor(vals_out + [NULL_VAL] * pad, **i32),
+            torch.tensor(count, **i32))

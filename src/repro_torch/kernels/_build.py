@@ -1,10 +1,12 @@
-"""Build ``csrc/traverse.cu`` with nvcc at first use and load it with ctypes.
+"""Build the CUDA sources of ``csrc/`` with nvcc at first use; load with ctypes.
 
-The shared library has a plain C interface (no PyTorch headers), so nvcc
-takes seconds.  It lands in ``repro_torch/build/`` under a name carrying a
-hash of the source and flags, so an edited source is never served a stale
-library; a finished file is renamed into place, so concurrent first uses do
-not see a half-written one.  A failed build raises: there is no fallback.
+Every ``csrc/*.cu`` is compiled to an object file by its own nvcc process,
+all started together, and the objects are linked into one shared library.
+The library has a plain C interface (no PyTorch headers), so nvcc takes
+seconds.  It lands in ``repro_torch/build/`` under a name carrying a hash
+of all the sources and the flags, so an edit to any source rebuilds it; a
+finished file is renamed into place, so concurrent first uses do not see a
+half-written one.  A failed build raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -17,10 +19,10 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "traverse.cu"
+SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -31,6 +33,10 @@ _SIGNATURES = {
     # nxt, keys, queries, node, key, batch, levels, cap, max_steps, stream
     "base_traverse_launch": [_P, _P, _P, _P, _P, _LL, ctypes.c_int, _LL,
                              _LL, _P],
+    # fused, auth_keys, queries, node, key, batch, levels, cap, max_steps,
+    # stream
+    "validated_traverse_launch": [_P, _P, _P, _P, _P, _LL, ctypes.c_int, _LL,
+                                  _LL, _P],
 }
 
 
@@ -43,21 +49,43 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run(procs) -> None:
+    """Wait for every (command, process); raise on the first that failed."""
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                      f"{out}{err}")
+    if failed:
+        raise RuntimeError(failed)
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
 def compile_library() -> Path:
     """Compile the kernels unless this exact build exists; return its path."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    srcs = sorted(SOURCE_DIR.glob("*.cu"))
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    tag = digest.hexdigest()[:12]
     out = BUILD_DIR / f"libtraverse-{tag}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = BUILD_DIR / f"objects-{tag}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objects = [work / f"{src.stem}.o" for src in srcs]
+    _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+          for src, obj in zip(srcs, objects)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    _run([_start([nvcc, "-shared", "-o", str(tmp), *map(str, objects)])])
     os.replace(tmp, out)
+    shutil.rmtree(work)
     return out
 
 

@@ -25,6 +25,7 @@ from repro_torch.core import skiplist as tsl
 from repro_torch.kernels import foresight_traverse as tft
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import validated_traverse as tvt
 
 PKG = Path(__file__).resolve().parent.parent / "src" / "repro_torch"
 
@@ -157,6 +158,8 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
         tft.foresight_traverse(fused, q)
     with pytest.raises(ValueError, match="CUDA"):
         tft.base_traverse(fused[..., 0], fused[0, :, 0], q)
+    with pytest.raises(ValueError, match="CUDA"):
+        tvt.validated_traverse(fused, fused[0, :, 0], q)
 
 
 def test_cpu_lookups_launch_no_kernel():
@@ -171,6 +174,8 @@ def test_import_leaves_jax_unloaded():
             "import repro_torch, repro_torch.convert\n"
             "import repro_torch.core.skiplist, repro_torch.kernels.ops\n"
             "import repro_torch.kernels._build\n"
+            "import repro_torch.core.validated, repro_torch.core.versioned\n"
+            "import repro_torch.kernels.validated_traverse\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']\n"
             "assert not bad, bad\n")
@@ -183,6 +188,6 @@ def test_no_file_of_the_port_imports_jax_or_repro():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)",
                          re.MULTILINE)
     files = sorted(PKG.rglob("*.py")) + [PKG.parent.parent / "chip_smoke.py"]
-    assert len(files) >= 8
+    assert len(files) >= 11
     offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert not offenders, offenders
