@@ -32,7 +32,25 @@ Phases, one JSON line each:
    lag-0 reads through ``search`` and K1, held against the oracle, the
    plain K8 and ``search_validated``; K8's times, bound, path lengths and
    the queries its ``4L+16`` step cap cuts;
-7. the ``kernels`` line: every ported kernel with its main-path launches.
+7. small sharded check (n=1500 keys in [0, 2^22), vals 3*keys, S=8,
+   L=12, both variants): ``build_sharded``, ``split_shard``,
+   ``merge_shards`` and ``repack`` on the card equal the CPU; on S=9 (a
+   split) K3-K6 equal their plain versions on a half-hit batch and on the
+   straddle stream, which takes K7's split and equals the CPU; an
+   undersized ``k_shards`` raises; ``apply_ops_sharded(rebalance=True)``
+   on 4 batches of 32 Zipf inserts equals the CPU in every array, result
+   and shard count;
+8. the sharded engine at the paper's size, once per variant: the same
+   2^25 keys over 64 shards of 2^21 slots, 21 levels, built with
+   ``build_sharded``; 2^20 uniform and 2^20 Zipf(1.2) queries through
+   ``search_kernel_sharded`` dense (K3/K4) and clustered (K5/K6),
+   held against the numpy oracle, each other and the other variant; each
+   kernel against its plain version; 256 updates of fig3's upd=50% mix
+   through ``apply_ops_sharded`` against a host oracle, then the sharded
+   invariant and an unchanged input; kernel, plain, plan, end-to-end and
+   ``torch.searchsorted`` times, bounds from a per-shard replay, path
+   lengths, auto-K and the ``ndist`` histogram;
+9. the ``kernels`` line: every ported kernel with its main-path launches.
 
 Then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check, build or launch raises, and the script exits non-zero.
@@ -50,6 +68,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.core import sharded as shd  # noqa: E402
 from repro_torch.core import skiplist as sl  # noqa: E402
 from repro_torch.core.validated import search_validated  # noqa: E402
 from repro_torch.core.versioned import VersionedIndex  # noqa: E402
@@ -70,16 +89,35 @@ KERNEL_REPS, PLAIN_REPS = 20, 5
 # benchmarks/fig3_sequential.py at upd=50% (benchmarks/common.py:63-73):
 # 25% insert, 25% delete, 50% read, keys uniform over the key range
 UPDATE_OPS = 1024
+# The sharded configuration: S = 64, the largest shard count of
+# benchmarks/fig_shard_skew.py:37, over the same 2^25 keys: m = 2^19 keys
+# and shard_capacity_for(2^25, 64) = 2^21 slots a shard; L = 21 is
+# benchmarks/common.py:35's ceil(log2(n)) + 2 for a shard's 2^19 keys.
+SHARDS, SHARD_LEVELS = 64, 21
+SHARD_UPDATE_OPS = 256
+ZIPF_A = 1.2             # benchmarks/common.py:55-60, YCSB-style hot keys
 TRAVERSE_CU = "src/repro_torch/csrc/traverse.cu"
+FT_PY = "src/repro/kernels/foresight_traverse.py"
 KERNELS = {   # name -> (wrapper, plain version, source, TPU kernel replaced)
     "foresight_traverse": (ft.foresight_traverse, ft.foresight_traverse_plain,
-                           TRAVERSE_CU,
-                           "src/repro/kernels/foresight_traverse.py:303"),
+                           TRAVERSE_CU, f"{FT_PY}:303"),
     "base_traverse": (ft.base_traverse, ft.base_traverse_plain, TRAVERSE_CU,
-                      "src/repro/kernels/foresight_traverse.py:698"),
+                      f"{FT_PY}:698"),
     "validated_traverse": (vt.validated_traverse, vt.validated_traverse_plain,
                            "src/repro_torch/csrc/validated_traverse.cu",
                            "src/repro/kernels/validated_traverse.py:60"),
+    "foresight_traverse_sharded": (ft.foresight_traverse_sharded,
+                                   ft.foresight_traverse_sharded_plain,
+                                   TRAVERSE_CU, f"{FT_PY}:416"),
+    "base_traverse_sharded": (ft.base_traverse_sharded,
+                              ft.base_traverse_sharded_plain, TRAVERSE_CU,
+                              f"{FT_PY}:462"),
+    "foresight_traverse_clustered": (ft.foresight_traverse_clustered,
+                                     ft.foresight_traverse_clustered_plain,
+                                     TRAVERSE_CU, f"{FT_PY}:585"),
+    "base_traverse_clustered": (ft.base_traverse_clustered,
+                                ft.base_traverse_clustered_plain,
+                                TRAVERSE_CU, f"{FT_PY}:645"),
 }
 
 
@@ -129,45 +167,53 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def path_footprint(st: sl.SkipListState, q: torch.Tensor) -> dict:
+def path_footprint(tables, q: torch.Tensor, sid=None) -> dict:
     """Distinct index entries the batch's paths read, and the path lengths.
 
-    Replays the traversal with plain tensor ops, keeps every index each
-    active lane reads (the loop's reads and the final level-0 read) and
-    counts the distinct ones with ``torch.unique``.  Foresight reads 8-byte
-    fused records; base reads 4-byte ``nxt`` entries and 4-byte ``keys``.
-    Also counts the distinct 32-byte sectors (the smallest unit HBM serves).
+    ``tables`` is ``(fused,)`` or ``(nxt, keys)`` with a leading shard axis
+    (``[None]`` for a monolithic list); lane ``i`` walks shard ``sid[i]``
+    (all 0 when ``sid`` is None), at that shard's offsets.  Replays the
+    traversal with plain tensor ops, keeps every index each active lane
+    reads (the loop's reads and the final level-0 read) and counts the
+    distinct ones with ``torch.unique``.  Foresight reads 8-byte fused
+    records; base reads 4-byte ``nxt`` entries and 4-byte ``keys``.  Also
+    counts the distinct 32-byte sectors (the smallest unit HBM serves).
     """
-    L, cap = st.levels, st.capacity
+    foresight = len(tables) == 1
+    S, L, cap = tables[0].shape[:3]
+    flat = tables[0].reshape(-1, 2) if foresight else tables[0].reshape(-1)
+    sid = torch.zeros_like(q).long() if sid is None else sid.long()
     x = torch.zeros_like(q)
     lvl = torch.full_like(q, L - 1)
-    rec_idx, key_idx, steps = [], [], 0
+    path = torch.zeros_like(q)
+    rec_idx, key_idx = [], []
     while bool((lvl >= 0).any()):
         active = lvl >= 0
-        idx = lvl.clamp(min=0).long() * cap + x.long()
-        if st.foresight:
-            rec = st.fused.view(-1, 2)[idx]
-            ptr, fk = rec[:, 0], rec[:, 1]
+        idx = (sid * L + lvl.clamp(min=0).long()) * cap + x.long()
+        if foresight:
+            ptr, fk = flat[idx].unbind(1)
         else:
-            ptr = st.nxt.view(-1)[idx]
-            fk = st.keys[ptr.long()]
-            key_idx.append(ptr[active].long())
+            ptr = flat[idx]
+            kidx = sid * cap + ptr.long()
+            fk = tables[1].reshape(-1)[kidx]
+            key_idx.append(kidx[active])
         rec_idx.append(idx[active])
-        steps += int(active.sum())
+        path += active.int()
         go = active & (fk < q)
         x = torch.where(go, ptr, x)
         lvl = torch.where(go | ~active, lvl, lvl - 1)
-    rec_idx.append(x.long())
-    if not st.foresight:
-        key_idx.append(st.nxt.view(-1)[x.long()].long())
-    rec_bytes = 8 if st.foresight else 4
-    arrays = [(torch.cat(rec_idx), rec_bytes)]
+    last = sid * L * cap + x.long()            # the final level-0 read
+    rec_idx.append(last)
+    if not foresight:
+        key_idx.append(sid * cap + flat[last].long())
+    arrays = [(torch.cat(rec_idx), 8 if foresight else 4)]
     if key_idx:
         arrays.append((torch.cat(key_idx), 4))
     distinct = sum(int(torch.unique(i).numel()) * b for i, b in arrays)
     sectors = sum(int(torch.unique(i * b // 32).numel()) * 32
                   for i, b in arrays)
-    return dict(distinct_bytes=distinct, sector_bytes=sectors, steps=steps)
+    return dict(distinct_bytes=distinct, sector_bytes=sectors,
+                steps=int(path.sum()), path=path)
 
 
 def card_identity() -> str:
@@ -565,7 +611,7 @@ def full_size(keys_np: np.ndarray, q_np: np.ndarray, foresight: bool) -> dict:
     plain_ms = time_ms(lambda: plain(*tables, q), PLAIN_REPS)
     library_ms = time_ms(lambda: torch.searchsorted(keys, q), KERNEL_REPS)
 
-    fp = path_footprint(st, q)
+    fp = path_footprint(tuple(t[None] for t in tables), q)
     io_bytes = q.numel() * 4 * 3             # queries in, node + key out
     bytes_ms = (fp["distinct_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = fp["steps"] / SCALAR_OPS_PER_S * 1e3   # one compare a step
@@ -596,6 +642,325 @@ def full_size(keys_np: np.ndarray, q_np: np.ndarray, foresight: bool) -> dict:
     return row
 
 
+def variant(foresight: bool) -> str:
+    return "foresight" if foresight else "base"
+
+
+def shard_tables(shl: shd.ShardedSkipList):
+    return ((shl.shards.fused,) if shl.foresight
+            else (shl.shards.nxt, shl.shards.keys))
+
+
+def sharded_names(foresight: bool):
+    """(dense kernel, clustered kernel) names of a variant."""
+    v = variant(foresight)
+    return f"{v}_traverse_sharded", f"{v}_traverse_clustered"
+
+
+def check_same_sharded(got: shd.ShardedSkipList, want: shd.ShardedSkipList,
+                       what: str) -> None:
+    check(got.n_shards == want.n_shards, f"{what} (shard count)")
+    check(torch.equal(got.boundaries.cpu(), want.boundaries.cpu()),
+          f"{what} (boundaries)")
+    check_same_state(got.shards, want.shards, what)
+
+
+def straddle_stream(boundaries: torch.Tensor, n_blocks: int = 4,
+                    tail_per_shard: int = 2) -> np.ndarray:
+    """tests/test_clustered_traversal.py:308-326: hot shard-0 blocks and one
+    last sorted block that straddles every shard."""
+    b = boundaries.cpu().numpy().astype(np.int64)
+    S = b.shape[0]
+    n_tail = tail_per_shard * (S - 1)
+    rng = np.random.default_rng(99)
+    hot = rng.integers(0, b[1], n_blocks * ft.QBLK - n_tail)
+    tail = np.concatenate([
+        np.linspace(b[i], (b[i + 1] if i + 1 < S else b[-1] + 2) - 1,
+                    tail_per_shard, dtype=np.int64) for i in range(1, S)])
+    return np.concatenate([hot, tail]).astype(np.int32)
+
+
+def check_sharded_kernels(shl, q, report: dict, label: str) -> None:
+    """The dense and clustered kernels equal their plain versions on the
+    card, on ``q`` routed (dense) and planned (clustered)."""
+    dense, clus = sharded_names(shl.foresight)
+    sid = shd.route(shl.boundaries, q)
+    plan = ops.cluster_queries(shl.boundaries, ops._pad(q)[0])
+    for name, args in ((dense, (sid, q)),
+                       (clus, (plan.block_sids, plan.ndist, plan.sid_sorted,
+                               plan.q_sorted))):
+        wrapper, plain, *_ = KERNELS[name]
+        before = wrapper.launches
+        got = wrapper(*shard_tables(shl), *args)
+        check(wrapper.launches == before + 1, f"{name} launched ({label})")
+        err = max_abs_err(got, plain(*shard_tables(shl), *args))
+        check(err == 0, f"{name} equals its plain version ({label})")
+        report[f"{name}_{label}_err"] = err
+
+
+def small_sharded_check() -> None:
+    """The sharded engine on the card equals the CPU: build, split / merge /
+    repack, K3-K6 against their plain versions (a half-hit batch and the
+    straddle stream through K7), the undersized-K refusal, and a rebalancing
+    Zipf insert stream."""
+    rng = np.random.default_rng(SEED)
+    keys = np.sort(rng.choice(1 << 22, 1500, replace=False)).astype(np.int32)
+    args = dict(n_shards=8, levels=12, seed=SEED)
+    report = {"phase": "small_sharded_check", "n": 1500, **args}
+    t0 = time.perf_counter()
+    for foresight in (True, False):
+        v = variant(foresight)
+        shl = shd.build_sharded(keys, keys * 3, foresight=foresight,
+                                device=DEVICE, **args)
+        cpu = shd.build_sharded(keys, keys * 3, foresight=foresight,
+                                device="cpu", **args)
+        check_same_sharded(shl, cpu, f"{v} build_sharded, card equals CPU")
+        for name, fn in (("split_shard", lambda x: shd.split_shard(x, 0)),
+                         ("merge_shards",
+                          lambda x: shd.merge_shards(x, 2, seed=1)),
+                         ("repack", lambda x: shd.repack(x, 5, seed=2))):
+            check_same_sharded(fn(shl), fn(cpu),
+                               f"{v} {name}, card equals CPU")
+        shl, cpu = shd.split_shard(shl, 0), shd.split_shard(cpu, 0)   # S = 9
+        q_np = np.concatenate([rng.choice(keys, 2048), rng.integers(
+            0, 1 << 22, 2048)]).astype(np.int32)
+        check_sharded_kernels(shl, on(DEVICE, q_np)[0], report,
+                              f"{v}_half_hit")
+        q, = on(DEVICE, straddle_stream(shl.boundaries))
+        check_sharded_kernels(shl, q, report, f"{v}_straddle")
+        plan = ops.cluster_queries(shl.boundaries, ops._pad(q)[0])
+        split = ops.plan_degeneration_split(plan.ndist, shl.n_shards)
+        check(split is not None, "the straddle stream takes K7's split")
+        dense, clus = (KERNELS[n][0] for n in sharded_names(foresight))
+        before = dense.launches, clus.launches
+        got = ops.search_kernel_sharded(shl, q)
+        check((dense.launches, clus.launches) ==
+              (before[0] + 1, before[1] + 1), "K7 launched both kernels")
+        want = ops.search_kernel_sharded(cpu, q.cpu())
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+              f"{v} search_kernel_sharded (K7), card equals CPU")
+        report[f"{v}_straddle_k_small"] = split[0]
+        try:
+            ops.search_kernel_sharded(shl, q, k_shards=2)
+        except ValueError:
+            report[f"{v}_undersized_k"] = "raised"
+        else:
+            raise RuntimeError("check failed: undersized k_shards raises")
+
+    # tests/test_rebalance.py:220's stream on a fully live index: 48 keys
+    # over 4 shards of 16 slots, 4 batches of 32 Zipf inserts into shard 0
+    krng = np.random.default_rng(SEED)
+    k48 = np.sort(krng.choice(1 << 16, 48, replace=False)).astype(np.int32)
+    results = {}
+    for foresight in (True, False):
+        v = variant(foresight)
+        zrng = np.random.default_rng(7)
+        st = {dev: shd.build_sharded(k48, k48 * 3, n_shards=4, capacity=16,
+                                     levels=8, seed=SEED, foresight=foresight,
+                                     device=dev) for dev in (DEVICE, "cpu")}
+        for b in range(4):
+            kk = (int(k48[2]) + (zrng.zipf(ZIPF_A, 32) - 1) % 4096
+                  ).astype(np.int32)
+            ins = np.full(32, sl.OP_INSERT, np.int32)
+            res = {}
+            for dev in st:
+                st[dev], res[dev] = shd.apply_ops_sharded(
+                    st[dev], *on(dev, ins, kk, kk * 2), rebalance=True,
+                    seed=b)
+            check(torch.equal(res[DEVICE].cpu(), res["cpu"]),
+                  f"{v} rebalancing apply_ops_sharded results, card = CPU")
+            check_same_sharded(st[DEVICE], st["cpu"],
+                               f"{v} rebalancing apply_ops_sharded state")
+        results[f"{v}_shards_after_zipf"] = st[DEVICE].n_shards
+    report.update(results, zipf_ops=4 * 32, seconds=time.perf_counter() - t0)
+    emit(report)
+
+
+def fingerprint(shl: shd.ShardedSkipList) -> list:
+    """Position-weighted sums of every stacked tensor, shard by shard."""
+    out = [shl.boundaries.cpu().tolist()]
+    for t in shl.shards:
+        if t is None:
+            continue
+        for s in range(t.shape[0]):
+            v = t[s].reshape(-1).long()
+            w = torch.arange(1, v.numel() + 1, device=v.device)
+            out.append(int((v * w).sum()))
+    return out
+
+
+def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
+                      foresight: bool, first: dict) -> tuple:
+    """The paper's keys over 64 shards: build, both traffics through the
+    dense and clustered paths, one update batch (``stream``: the ops and
+    their host-oracle answers), then checks, times and bounds.  ``first``
+    carries the foresight run's answers to the base run.  Returns
+    (kernels-line rows, answers)."""
+    stage_s, t_stage = {}, time.perf_counter()
+    t_phase = t_stage
+
+    def lap(stage: str) -> None:
+        nonlocal t_stage
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage_s[stage] = stage_s.get(stage, 0.0) + now - t_stage
+        t_stage = now
+
+    dev = torch.device(DEVICE)
+    v = variant(foresight)
+    dense, clus = sharded_names(foresight)
+    (types, ks, vs), want_results, current = stream
+    qs = {name: torch.from_numpy(q).to(dev) for name, q in traffic.items()}
+    torch.cuda.reset_peak_memory_stats()
+
+    # The main path, with every launch counter at 0 just before it.
+    reset_launches()
+    t0 = time.perf_counter()
+    shl = shd.build_sharded(torch.from_numpy(keys_np).to(dev),
+                            torch.from_numpy(keys_np + 1).to(dev),
+                            n_shards=SHARDS, levels=SHARD_LEVELS,
+                            foresight=foresight, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    res = {(name, cl): ops.search_kernel_sharded(shl, q, cluster=cl)
+           for name, q in qs.items() for cl in (False, True)}
+    before = fingerprint(shl)
+    t0 = time.perf_counter()
+    new, results = shd.apply_ops_sharded(shl, *on(dev, types, ks, vs))
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    after_update = ops.search_kernel_sharded(new, qs["uniform"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    lap("main_path")
+    for name in (dense, clus):
+        check(launches[name] >= 1, f"sharded path launched {name}")
+
+    answers = {}
+    for (name, cl), r in res.items():
+        what = f"{v} {name} cluster={cl}"
+        check_lookups(r.found, r.vals, traffic[name], keys_np, what)
+        answers[(name, cl)] = [t.cpu() for t in r]
+    for name in qs:
+        check(all(torch.equal(a, b) for a, b in
+                  zip(answers[(name, True)], answers[(name, False)])),
+              f"{v} {name}: clustered equals dense (found, vals, node)")
+    if first:
+        check(all(torch.equal(a, b) for key in answers
+                  for a, b in zip(answers[key], first[key])),
+              "foresight and base give the same found, vals, node")
+    check(np.array_equal(results.cpu().numpy(), want_results),
+          "every apply_ops_sharded result equals the oracle")
+    check_lookups(after_update.found, after_update.vals, traffic["uniform"],
+                  current, "search_kernel_sharded after the update")
+    check(bool(shd.check_sharded_invariant(new, expect_n=len(current))),
+          "sharded invariant and live count after the update")
+    check(fingerprint(shl) == before, "apply_ops_sharded leaves its input "
+                                      "unchanged")
+    del new, after_update
+    torch.cuda.empty_cache()
+    lap("oracle_checks")
+
+    report = {"phase": "sharded_full_size", "variant": v, "n": FULL_N,
+              "shards": SHARDS, "levels": SHARD_LEVELS,
+              "shard_capacity": shl.shard_capacity,
+              "index_gb": SHARDS * ops.tile_bytes(
+                  SHARD_LEVELS, shl.shard_capacity, foresight) / 1e9,
+              "build_s": build_s, "update_ops": SHARD_UPDATE_OPS,
+              "update_s": update_s,
+              "update_us_per_op": update_s / SHARD_UPDATE_OPS * 1e6}
+    sorted_keys = torch.from_numpy(keys_np).to(dev)
+    rows = {}
+    for name, q in qs.items():
+        sid = shd.route(shl.boundaries, q)
+        plan = ops.cluster_queries(shl.boundaries, q)
+        split = ops.plan_degeneration_split(plan.ndist, SHARDS)
+        clus_args = (plan.block_sids, plan.ndist, plan.sid_sorted,
+                     plan.q_sorted)
+        fp = path_footprint(shard_tables(shl), q, sid)
+        lap("footprint_replay")
+        t = {}
+        for kname, args in ((dense, (sid, q)), (clus, clus_args)):
+            wrapper, plain, *_ = KERNELS[kname]
+            err = max_abs_err(wrapper(*shard_tables(shl), *args),
+                              plain(*shard_tables(shl), *args))
+            check(err == 0, f"{kname} equals its plain version ({name})")
+            t[kname] = dict(
+                err=err,
+                ms=time_ms(lambda: wrapper(*shard_tables(shl), *args),
+                           KERNEL_REPS),
+                plain_ms=time_ms(lambda: plain(*shard_tables(shl), *args),
+                                 PLAIN_REPS))
+        lap("kernel_checks_and_timing")
+        plan_ms = time_ms(lambda: ops.cluster_queries(shl.boundaries, q),
+                          KERNEL_REPS)
+        e2e = {cl: time_ms(lambda: ops.search_kernel_sharded(
+            shl, q, cluster=cl), KERNEL_REPS) for cl in (False, True)}
+        library_ms = time_ms(lambda: torch.searchsorted(sorted_keys, q),
+                             KERNEL_REPS)
+        lap("timing")
+        B = q.numel()
+        nblk, K = plan.block_sids.shape
+        io = {dense: B * 4 * 4,                       # q, sid in; node, key
+              clus: B * 4 * 4 + (nblk * K + nblk) * 4}   # + the plan
+        ops_ms = fp["steps"] / SCALAR_OPS_PER_S * 1e3    # one compare a step
+        nd = plan.ndist.cpu().numpy()
+        report[name] = {
+            "phase": "sharded_full_size", "variant": v, "traffic": name,
+            "batch": B, "hits": int(res[(name, False)].found.sum()),
+            "mean_path_steps": fp["steps"] / B,
+            "max_path_steps": int(fp["path"].max()),
+            "distinct_bytes": fp["distinct_bytes"],
+            "sector_bytes": fp["sector_bytes"],
+            "auto_k": K, "k7_split": None if split is None else {
+                "k_small": split[0], "keep_blocks": len(split[1]),
+                "straggler_blocks": len(split[2])},
+            "ndist_histogram": {int(k): int(c) for k, c in
+                                zip(*np.unique(nd, return_counts=True))},
+            "lanes_on_busiest_shard": int(torch.bincount(
+                plan.sid_sorted.long(), minlength=SHARDS).max()),
+            "plan_ms": plan_ms, "search_kernel_sharded_ms": {
+                "dense": e2e[False], "clustered": e2e[True]},
+            "library_ms": library_ms}
+        for kname in (dense, clus):
+            bytes_ms = (fp["distinct_bytes"] + io[kname]) \
+                / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            report[name][kname] = {
+                **t[kname], "mops": B / t[kname]["ms"] / 1e3,
+                "bound_ms": bound_ms,
+                "sector_bound_ms": (fp["sector_bytes"] + io[kname])
+                / HBM_BYTES_PER_S * 1e3,
+                "bound_share": bound_ms / t[kname]["ms"]}
+            wrapper, plain, source, replaces = KERNELS[kname]
+            rows.setdefault(kname, {
+                "name": kname, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[kname],
+                "max_abs_err": t[kname]["err"], "ms": t[kname]["ms"],
+                "plain_ms": t[kname]["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": library_ms})
+    report["clustered_over_dense_ms"] = {
+        name: report[name][clus]["ms"] / report[name][dense]["ms"]
+        for name in qs}
+    for name in qs:                      # one line a traffic, then the phase
+        emit(report.pop(name))
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    report["stage_s"] = stage_s
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+    del shl, res, sorted_keys, qs
+    torch.cuda.empty_cache()
+    return list(rows.values()), answers
+
+
+def zipf_queries(keys: np.ndarray, batch: int, a: float = ZIPF_A,
+                 seed: int = 1) -> np.ndarray:
+    """benchmarks/common.py:55-60: Zipf(a) over the key population by rank."""
+    rng = np.random.default_rng(seed)
+    return keys[(rng.zipf(a, batch) - 1) % len(keys)].astype(np.int32)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -603,6 +968,7 @@ def main() -> None:
     build_kernels()
     small_check()
     small_update_check()
+    small_sharded_check()
     rng = np.random.default_rng(SEED)
     keys_np = np.sort(rng.choice(FULL_SPAN, FULL_N, replace=False))
     keys_np = keys_np.astype(np.int32)
@@ -612,6 +978,28 @@ def main() -> None:
     emit({"phase": "ratio",
           "foresight_over_base_ms": rows[0]["ms"] / rows[1]["ms"]})
     rows.append(versioned_full_size(keys_np, q_np))
+    traffic = {"uniform": q_np, "zipf": zipf_queries(keys_np, FULL_BATCH)}
+    ops_ = synchrobench_ops(SHARD_UPDATE_OPS, SEED + 5)
+    t0 = time.perf_counter()
+    stream = (ops_, *host_oracle(keys_np, *ops_[:2]))
+    emit({"phase": "sharded_host_oracle", "seconds": time.perf_counter() - t0})
+    answers = {}
+    for foresight in (True, False):
+        sharded_rows, answers = sharded_full_size(keys_np, traffic, stream,
+                                                  foresight, answers)
+        rows += sharded_rows
+    by_name = {r["name"]: r for r in rows}
+    emit({"phase": "sharded_ratio",
+          "foresight_over_base_ms": {
+              kind: by_name[f"foresight_traverse_{kind}"]["ms"]
+              / by_name[f"base_traverse_{kind}"]["ms"]
+              for kind in ("sharded", "clustered")},
+          "sharded_over_monolithic_ms": {
+              v: by_name[f"{v}_traverse_sharded"]["ms"]
+              / by_name[f"{v}_traverse"]["ms"]
+              for v in ("foresight", "base")}})
+    for name in KERNELS:
+        check(by_name[name]["launches"] > 0, f"{name} launched on its path")
     emit({"kernels": rows})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

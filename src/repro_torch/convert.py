@@ -3,7 +3,9 @@
 ``state_to_numpy`` / ``state_from_numpy`` use the field names of both
 packages' ``SkipListState``, so a test can build a state with one package,
 move it across bit for bit (the ``rng`` key included) and search it with
-the other.
+the other.  ``sharded_to_numpy`` / ``sharded_from_numpy`` do the same for
+a ``ShardedSkipList``, under the keys ``shards.<field>`` and
+``boundaries``.
 """
 from __future__ import annotations
 
@@ -12,24 +14,17 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core.sharded import ShardedSkipList
 from repro_torch.core.skiplist import SkipListState, resolve_device
 
 _FAT_FIELDS = ("fat_keys", "fat_vals", "nlen")
 
 
-def state_from_numpy(arrays: Dict[str, np.ndarray], device=None
-                     ) -> SkipListState:
-    """A port state from ``{field: array}`` (``None`` or absent: unset).
-
-    ``device`` follows the package rule: ``None`` means the GPU.
-    """
+def _state(arrays: Dict[str, np.ndarray], dev: torch.device
+           ) -> SkipListState:
     if any(arrays.get(f) is not None for f in _FAT_FIELDS):
         raise NotImplementedError("fat-layout states are not ported yet "
                                   "(ROADMAP.md Queue 1, fat-node layout)")
-    if np.ndim(arrays["keys"]) != 1:
-        raise NotImplementedError("stacked (sharded) states are not ported "
-                                  "yet (ROADMAP.md Queue 1, sharded engine)")
-    dev = resolve_device(device)
     fields = {}
     for name in SkipListState._fields:
         a = arrays.get(name)
@@ -38,7 +33,41 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], device=None
     return SkipListState(**fields)
 
 
+def state_from_numpy(arrays: Dict[str, np.ndarray], device=None
+                     ) -> SkipListState:
+    """A port state from ``{field: array}`` (``None`` or absent: unset).
+
+    ``device`` follows the package rule: ``None`` means the GPU.  Stacked
+    (sharded) arrays go through ``sharded_from_numpy``.
+    """
+    if np.ndim(arrays["keys"]) != 1:
+        raise NotImplementedError("stacked (sharded) arrays convert "
+                                  "through sharded_from_numpy")
+    return _state(arrays, resolve_device(device))
+
+
 def state_to_numpy(state: SkipListState) -> Dict[str, np.ndarray]:
     """``{field: array}`` for every set field of ``state``, copied to host."""
     return {name: t.cpu().numpy() for name, t in state._asdict().items()
             if t is not None}
+
+
+def sharded_from_numpy(arrays: Dict[str, np.ndarray], device=None
+                       ) -> ShardedSkipList:
+    """A port ``ShardedSkipList`` from ``{"shards.<field>": [S, ...] array,
+    "boundaries": [S] array}``."""
+    dev = resolve_device(device)
+    shards = {k[len("shards."):]: v for k, v in arrays.items()
+              if k.startswith("shards.")}
+    if np.ndim(shards["keys"]) != 2:
+        raise ValueError("shards.keys must be stacked [S, cap]")
+    boundaries = torch.from_numpy(
+        np.array(arrays["boundaries"], dtype=np.int32, copy=True)).to(dev)
+    return ShardedSkipList(_state(shards, dev), boundaries)
+
+
+def sharded_to_numpy(shl: ShardedSkipList) -> Dict[str, np.ndarray]:
+    """``{"shards.<field>": array, "boundaries": array}``, copied to host."""
+    out = {f"shards.{k}": v for k, v in state_to_numpy(shl.shards).items()}
+    out["boundaries"] = shl.boundaries.cpu().numpy()
+    return out

@@ -17,7 +17,7 @@ lives; ``kernels.ops.search_kernel`` is the hand-written-kernel lookup.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -90,30 +90,73 @@ def resolve_device(device) -> torch.device:
 # Construction
 # ---------------------------------------------------------------------------
 
+def pack_fill(node_width: int) -> int:
+    """Elements packed per node at build time: 1 on the scalar layout."""
+    return max(1, node_width // 2)
+
+
+def node_slots_for(n_elems: int, node_width: int) -> int:
+    """Node slots that hold ``n_elems`` elements at build fill (>= 1)."""
+    return max(1, -(-n_elems // pack_fill(node_width)))
+
+
+def usable_capacity(capacity: int, node_width: int = 1) -> int:
+    """Insertable elements at ``capacity`` slots: ``capacity - 2`` on the
+    scalar layout (every slot but the two sentinels)."""
+    return (capacity - 2) * pack_fill(node_width)
+
+
 def empty(capacity: int, levels: int = 20, *, foresight: bool = True,
           seed: int = 0, node_width: int = 1, device=None) -> SkipListState:
     """An empty skiplist with room for ``capacity - 2`` elements."""
     if node_width > 1:
         raise NotImplementedError(_FAT_TODO)
     dev = resolve_device(device)
-    i32 = dict(dtype=torch.int32, device=dev)
-    keys = torch.full((capacity,), KEY_MAX, **i32)
-    keys[HEAD] = KEY_MIN
-    height = torch.zeros((capacity,), **i32)
-    height[[HEAD, TAIL]] = levels
-    nxt = fused = None
-    if foresight:
-        fused = torch.zeros((levels, capacity, 2), **i32)
-        fused[:, [HEAD, TAIL]] = torch.tensor([TAIL, KEY_MAX], **i32)
-    else:
-        nxt = torch.zeros((levels, capacity), **i32)
-        nxt[:, [HEAD, TAIL]] = TAIL
-    scalar = lambda v: torch.tensor(v, **i32)
+    st = allocate((), capacity, levels, foresight=foresight, device=dev)
+    fill_empty(st, levels)
+    st.rng.copy_(prng.PRNGKey(seed, device=dev))
+    return st
+
+
+def allocate(lead: Tuple[int, ...], capacity: int, levels: int, *,
+             foresight: bool, device) -> SkipListState:
+    """Uninitialised state tensors, each with the leading axes ``lead``.
+
+    ``lead == ()`` is one list; ``(S,)`` the stacked state of ``S`` shards.
+    """
+    i32 = dict(dtype=torch.int32, device=device)
+    vec = lambda: torch.empty(lead + (capacity,), **i32)
+    scalar = lambda: torch.empty(lead, **i32)
+    table = lead + (levels, capacity)
     return SkipListState(
-        keys=keys, vals=torch.full((capacity,), NULL_VAL, **i32),
-        height=height, nxt=nxt, fused=fused, n=scalar(0), free_top=scalar(0),
-        free_list=torch.zeros((capacity,), **i32), bump=scalar(2),
-        rng=prng.PRNGKey(seed, device=dev))
+        keys=vec(), vals=vec(), height=vec(),
+        nxt=None if foresight else torch.empty(table, **i32),
+        fused=torch.empty(table + (2,), **i32) if foresight else None,
+        n=scalar(), free_top=scalar(), free_list=vec(), bump=scalar(),
+        rng=torch.empty(lead + (2,), dtype=torch.uint32, device=device))
+
+
+def fill_empty(st: SkipListState, levels: int) -> None:
+    """Write the empty list into ``st``'s tensors in place (all but ``rng``).
+
+    Works on any leading axes, so one call empties every shard of a stack.
+    """
+    st.keys.fill_(KEY_MAX)
+    st.keys[..., HEAD] = KEY_MIN
+    st.vals.fill_(NULL_VAL)
+    st.height.zero_()
+    st.height[..., [HEAD, TAIL]] = levels
+    if st.fused is not None:
+        st.fused.zero_()
+        st.fused[..., [HEAD, TAIL], :] = torch.tensor(
+            [TAIL, KEY_MAX], dtype=torch.int32, device=st.keys.device)
+    else:
+        st.nxt.zero_()
+        st.nxt[..., [HEAD, TAIL]] = TAIL
+    st.n.zero_()
+    st.free_top.zero_()
+    st.free_list.zero_()
+    st.bump.fill_(2)
 
 
 def sample_heights(rng: torch.Tensor, shape, levels: int) -> torch.Tensor:
@@ -153,12 +196,26 @@ def build(keys, vals, *, capacity: int, levels: int = 20,
     if node_width > 1:
         raise NotImplementedError(_FAT_TODO)
     dev = resolve_device(device)
+    keys = torch.as_tensor(keys, device=dev)
+    if keys.shape[0] + 2 > capacity:
+        raise ValueError(f"capacity {capacity} must exceed n + 2 = "
+                         f"{keys.shape[0] + 2}")
+    st = empty(capacity, levels, foresight=foresight, seed=seed, device=dev)
+    build_into(st, keys, vals, valid)
+    return st
+
+
+def build_into(st: SkipListState, keys, vals, valid=None) -> None:
+    """Bulk-build into the fresh empty list ``st``, in place (``build``).
+
+    ``st`` holds ``empty``'s arrays and the seed's key; its tensors may be
+    views into a stacked (sharded) state.  Its ``rng`` advances by one
+    split, as the reference's build does.
+    """
+    dev, levels = st.device, st.levels
     keys = torch.as_tensor(keys, device=dev).to(torch.int32)
     vals = torch.as_tensor(vals, device=dev).to(torch.int32)
     n = keys.shape[0]
-    if n + 2 > capacity:
-        raise ValueError(f"capacity {capacity} must exceed n + 2 = {n + 2}")
-    st = empty(capacity, levels, foresight=foresight, seed=seed, device=dev)
     rng, sub = prng.split(st.rng)
     heights = sample_heights(sub, (n,), levels)
     if valid is not None:
@@ -168,11 +225,10 @@ def build(keys, vals, *, capacity: int, levels: int = 20,
         vals = torch.where(valid, vals, NULL_VAL)
     n_live = n if valid is None else int(valid.sum())
 
-    # The build fills the fresh tables of ``st`` in place.
     st.keys[2:n + 2] = keys
     st.vals[2:n + 2] = vals
     st.height[2:n + 2] = heights
-    table = st.fused if foresight else st.nxt
+    table = st.fused if st.foresight else st.nxt
     for lvl in range(levels):
         # The head and each node reaching this level point at the next
         # node reaching it; the last one points at the tail.
@@ -180,14 +236,13 @@ def build(keys, vals, *, capacity: int, levels: int = 20,
         rows = torch.cat([pos.new_tensor([HEAD]), pos + 2])
         ids = torch.cat([pos + 2, pos.new_tensor([TAIL])]).to(torch.int32)
         nkey = torch.cat([keys[pos], keys.new_tensor([KEY_MAX])])
-        if foresight:
+        if st.foresight:
             table[lvl, rows] = torch.stack([ids, nkey], dim=1)
         else:
             table[lvl, rows] = ids
-    return st._replace(n=torch.tensor(n_live, dtype=torch.int32, device=dev),
-                       bump=torch.tensor(n_live + 2, dtype=torch.int32,
-                                         device=dev),
-                       rng=rng)
+    st.n.fill_(n_live)
+    st.bump.fill_(n_live + 2)
+    st.rng.copy_(rng)
 
 
 # ---------------------------------------------------------------------------
@@ -366,22 +421,23 @@ def _locate(state: SkipListState, key: int):
     return bool(res.found[0]), int(res.node[0]), res.preds[0].long()
 
 
-def _insert_inplace(state: SkipListState, key: int, val: int
-                    ) -> Tuple[SkipListState, bool]:
-    """Insert (upsert) into ``state``'s own tensors; (state, inserted_new).
+def _insert_inplace(state: SkipListState, key: int, val: int) -> bool:
+    """Insert (upsert) into ``state``'s own tensors; True iff the key is new.
 
     The rng key advances on every call, as in the reference: after an
-    upsert and after an insert that finds no free slot too.
+    upsert and after an insert that finds no free slot too.  It is written
+    in place like every other field, so ``state`` may be a view of one
+    shard of a stacked state.
     """
     found, node, preds = _locate(state, key)
     rng, sub = prng.split(state.rng)
-    state = state._replace(rng=rng)
+    state.rng.copy_(rng)
     if found:                                   # upsert: overwrite the value
         state.vals[node] = val
-        return state, False
+        return False
     nid, ok = _alloc(state)
     if not ok:
-        return state, False
+        return False
     h = int(sample_heights(sub, (), state.levels))
     lv = torch.arange(h, device=state.device)   # the levels to splice
     p = preds[:h]
@@ -398,19 +454,18 @@ def _insert_inplace(state: SkipListState, key: int, val: int
     state.vals[nid] = val
     state.height[nid] = h
     state.n.add_(1)
-    return state, True
+    return True
 
 
-def _delete_inplace(state: SkipListState, key: int
-                    ) -> Tuple[SkipListState, bool]:
-    """Delete from ``state``'s own tensors; (state, deleted).
+def _delete_inplace(state: SkipListState, key: int) -> bool:
+    """Delete from ``state``'s own tensors; True iff the key was there.
 
     Each predecessor takes over the deleted node's pair at that level.  The
     slot goes on the free list; its stale records stay until reuse.
     """
     found, d, preds = _locate(state, key)
     if not found:
-        return state, False
+        return False
     h = int(state.height[d])
     lv = torch.arange(h, device=state.device)
     table = state.fused if state.foresight else state.nxt
@@ -420,7 +475,7 @@ def _delete_inplace(state: SkipListState, key: int
     state.keys[d] = KEY_MAX
     state.height[d] = 0
     state.n.sub_(1)
-    return state, True
+    return True
 
 
 def insert(state: SkipListState, key, val) -> Tuple[SkipListState,
@@ -430,14 +485,16 @@ def insert(state: SkipListState, key, val) -> Tuple[SkipListState,
     ``state`` is left unchanged.  A full list (no free slot) inserts
     nothing and reports False; the rng key still advances.
     """
-    st, ok = _insert_inplace(_clone(state), _to_i32(key), _to_i32(val))
+    st = _clone(state)
+    ok = _insert_inplace(st, _to_i32(key), _to_i32(val))
     return st, torch.tensor(ok, device=state.device)
 
 
 def delete(state: SkipListState, key) -> Tuple[SkipListState, torch.Tensor]:
     """Delete one key: (new state, deleted [] bool).  ``state`` is left
     unchanged."""
-    st, ok = _delete_inplace(_clone(state), _to_i32(key))
+    st = _clone(state)
+    ok = _delete_inplace(st, _to_i32(key))
     return st, torch.tensor(ok, device=state.device)
 
 
@@ -448,6 +505,32 @@ def delete(state: SkipListState, key) -> Tuple[SkipListState, torch.Tensor]:
 OP_READ, OP_INSERT, OP_DELETE = 0, 1, 2
 
 
+def host_ops(op_types, keys, vals) -> List[List[int]]:
+    """The three op arrays as host lists of int32 values."""
+    return [torch.as_tensor(a).to(torch.int32).cpu().tolist()
+            for a in (op_types, keys, vals)]
+
+
+def apply_ops_inplace(st: SkipListState, op_types: List[int],
+                      keys: List[int], vals: List[int]) -> List[int]:
+    """Run host-list ops on ``st``'s own tensors in order; per-op 0/1.
+
+    As ``lax.switch`` does, an op type below 0 runs as a read and one
+    above 2 as a delete.  A read touches neither the state nor its rng.
+    """
+    results = []
+    for t, k, v in zip(op_types, keys, vals):
+        t = min(max(t, OP_READ), OP_DELETE)
+        if t == OP_READ:
+            ok = _locate(st, k)[0]
+        elif t == OP_INSERT:
+            ok = _insert_inplace(st, k, v)
+        else:
+            ok = _delete_inplace(st, k)
+        results.append(int(ok))
+    return results
+
+
 def apply_ops(state: SkipListState, op_types, keys, vals
               ) -> Tuple[SkipListState, torch.Tensor]:
     """Apply a linearized batch of mixed ops: (new state, results [B] int32).
@@ -455,27 +538,14 @@ def apply_ops(state: SkipListState, op_types, keys, vals
     ``results`` is each op's outcome as 0/1: found (read), inserted new
     (insert), deleted (delete).  The batch linearizes in order, like the
     reference's ``lax.scan``.  ``state`` is left unchanged: its tensors are
-    cloned once for the batch and the clone is updated in place.  As
-    ``lax.switch`` does, an op type below 0 runs as a read and one above 2
-    as a delete.
+    cloned once for the batch and the clone is updated in place.
 
     The ops run one after another on the host, each through the eager
     ``search`` with its per-step host sync, so an op costs milliseconds on
     a card at large sizes.
     """
-    host = [torch.as_tensor(a).to(torch.int32).cpu().tolist()
-            for a in (op_types, keys, vals)]
     st = _clone(state)
-    results = []
-    for t, k, v in zip(*host):
-        t = min(max(t, OP_READ), OP_DELETE)
-        if t == OP_READ:
-            ok = _locate(st, k)[0]
-        elif t == OP_INSERT:
-            st, ok = _insert_inplace(st, k, v)
-        else:
-            st, ok = _delete_inplace(st, k)
-        results.append(int(ok))
+    results = apply_ops_inplace(st, *host_ops(op_types, keys, vals))
     return st, torch.tensor(results, dtype=torch.int32, device=st.device)
 
 

@@ -1,38 +1,100 @@
 // Batched skiplist traversal kernels for Hopper (sm_90a), plain C interface.
 //
 // Replace the Pallas TPU kernels of repro/kernels/foresight_traverse.py:
-//   foresight_traverse_launch -> foresight_traverse (_foresight_kernel)
-//   base_traverse_launch      -> base_traverse (_base_kernel)
-// Both run the lock-step loop of _traverse_loop: start at the head on level
+//   foresight_traverse_launch  -> foresight_traverse (_foresight_kernel), K1
+//   base_traverse_launch       -> base_traverse (_base_kernel), K2
+//   foresight_sharded_launch   -> foresight_traverse_sharded
+//                                 (_foresight_sharded_kernel), K3
+//   base_sharded_launch        -> base_traverse_sharded (_base_sharded_kernel), K4
+//   foresight_clustered_launch -> foresight_traverse_clustered
+//                                 (_foresight_clustered_kernel), K5
+//   base_clustered_launch      -> base_traverse_clustered
+//                                 (_base_clustered_kernel), K6
+// All run the lock-step loop of _traverse_loop: start at the head on level
 // L-1; each step either advances to the successor (its key < q) or descends;
 // stop when below level 0 or after max_steps steps; return the level-0
-// successor of the final predecessor and its key.
+// successor of the final predecessor and its key.  K3-K6 walk one shard of
+// stacked tables: lane i's tables start at shard sid[i]'s offset, and its
+// node ids are shard-local.
 //
 // Design: one thread per query, each running its own early-exit loop.  That
 // equals the reference's 128-lane lock-step exactly: a lane there advances
 // or descends once per iteration from the start, so it stops after the same
-// number of its own steps.  No lane block, so no padding; the ragged edge is
-// masked.  The index lives in device memory; nothing is staged in shared
-// memory (the TPU's VMEM budget has no counterpart here).
+// number of its own steps.  The TPU grids exist to stream index tiles
+// through VMEM: (B/128) x S shard tiles for K3/K4, the (B/128) x K tiles a
+// clustered block names for K5/K6.  Here the index stays in device memory
+// and a thread reads its own shard's records directly, so a lane costs the
+// same whatever the grid; nothing is staged in shared memory.  K5/K6 keep
+// the plan only to decide which lanes are served: lane i of block i/128 is
+// served iff sid[i] is among block_sids[j, k < ndist[j]]; an unserved lane
+// (or a shard id outside [0, S)) writes (0, 0), the reference's _init.
+// Sorting the batch by shard (the clustered plan) puts lanes of one shard in
+// the same warps, which can only help through L2 and sector locality on the
+// shard's shared upper levels.
 //
 // The foresight step is ONE 8-byte load of the (next_ptr, next_key) record,
 // an int2 through the read-only path: the paper's fused load.  The base step
 // is two dependent 4-byte loads, pointer then pointee key.
 //
-// What bounds it: on an index far larger than the 50 MB L2 each step is a
+// What bounds them: on an index far larger than the 50 MB L2 each step is a
 // dependent miss to HBM, so a thread's time is its path length times the
 // miss latency; the card's byte rate is not the limit.  Speeding it up
 // (warp-cooperative upper levels, the top levels cached in shared memory,
 // prefetch) is later work.
 //
 // Record and byte offsets are computed in 64 bits: at 27 levels x 2^26 slots
-// the record index reaches 1.8e9 and the byte offset 14.5e9.
+// the record index reaches 1.8e9 and the byte offset 14.5e9, and a stack of
+// 64 shards x 21 levels x 2^21 slots holds 2.8e9 records (22.5 GB).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kQblk = 128;   // lanes per block of a clustered plan (QBLK)
+
+// K1's walk over one table fused [levels, cap, 2]: the level-0 record of the
+// final predecessor.
+__device__ __forceinline__ int2 foresight_walk(const int2* __restrict__ fused,
+                                               int q, int levels,
+                                               long long cap,
+                                               long long max_steps) {
+  int x = 0;                 // head sentinel
+  int lvl = levels - 1;
+  for (long long step = 0; step < max_steps && lvl >= 0; ++step) {
+    const int2 rec = __ldg(fused + (size_t)lvl * (size_t)cap + (size_t)x);
+    if (rec.y < q) x = rec.x; else --lvl;
+  }
+  return __ldg(fused + (size_t)x);                 // level 0
+}
+
+// K2's walk over nxt [levels, cap] and keys [cap]: (successor, its key).
+__device__ __forceinline__ int2 base_walk(const int* __restrict__ nxt,
+                                          const int* __restrict__ keys, int q,
+                                          int levels, long long cap,
+                                          long long max_steps) {
+  int x = 0;
+  int lvl = levels - 1;
+  for (long long step = 0; step < max_steps && lvl >= 0; ++step) {
+    const int ptr = __ldg(nxt + (size_t)lvl * (size_t)cap + (size_t)x);
+    const int fk = __ldg(keys + (size_t)ptr);      // dependent on ptr
+    if (fk < q) x = ptr; else --lvl;
+  }
+  const int ptr = __ldg(nxt + (size_t)x);
+  return make_int2(ptr, __ldg(keys + (size_t)ptr));
+}
+
+// Is lane i, of shard s, served by its clustered block's slots?
+__device__ __forceinline__ bool served_by_plan(const int* __restrict__ bsids,
+                                               const int* __restrict__ ndist,
+                                               long long i, int s, int k_slots) {
+  const long long j = i / kQblk;
+  const int nd = min(__ldg(ndist + j), k_slots);
+  const int* row = bsids + (size_t)j * (size_t)k_slots;
+  for (int k = 0; k < nd; ++k)
+    if (__ldg(row + k) == s) return true;
+  return false;
+}
 
 __global__ void __launch_bounds__(kBlock)
 foresight_kernel(const int2* __restrict__ fused, const int* __restrict__ queries,
@@ -41,16 +103,9 @@ foresight_kernel(const int2* __restrict__ fused, const int* __restrict__ queries
                  long long max_steps) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= batch) return;
-  const int q = queries[i];
-  int x = 0;                 // head sentinel
-  int lvl = levels - 1;
-  for (long long step = 0; step < max_steps && lvl >= 0; ++step) {
-    const int2 rec = __ldg(fused + (size_t)lvl * (size_t)cap + (size_t)x);
-    if (rec.y < q) x = rec.x; else --lvl;
-  }
-  const int2 rec = __ldg(fused + (size_t)x);      // level 0
-  node[i] = rec.x;
-  key[i] = rec.y;
+  const int2 r = foresight_walk(fused, queries[i], levels, cap, max_steps);
+  node[i] = r.x;
+  key[i] = r.y;
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -60,17 +115,54 @@ base_kernel(const int* __restrict__ nxt, const int* __restrict__ keys,
             long long max_steps) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= batch) return;
-  const int q = queries[i];
-  int x = 0;
-  int lvl = levels - 1;
-  for (long long step = 0; step < max_steps && lvl >= 0; ++step) {
-    const int ptr = __ldg(nxt + (size_t)lvl * (size_t)cap + (size_t)x);
-    const int fk = __ldg(keys + (size_t)ptr);      // dependent on ptr
-    if (fk < q) x = ptr; else --lvl;
-  }
-  const int ptr = __ldg(nxt + (size_t)x);
-  node[i] = ptr;
-  key[i] = __ldg(keys + (size_t)ptr);
+  const int2 r = base_walk(nxt, keys, queries[i], levels, cap, max_steps);
+  node[i] = r.x;
+  key[i] = r.y;
+}
+
+// K3 and K5: bsids == nullptr is the dense K3, every in-range lane served.
+__global__ void __launch_bounds__(kBlock)
+foresight_sharded_kernel(const int2* __restrict__ fused,
+                         const int* __restrict__ bsids,
+                         const int* __restrict__ ndist,
+                         const int* __restrict__ sids,
+                         const int* __restrict__ queries,
+                         int* __restrict__ node, int* __restrict__ key,
+                         long long batch, int shards, int k_slots, int levels,
+                         long long cap, long long max_steps) {
+  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+  if (i >= batch) return;
+  const int s = sids[i];
+  int2 r = make_int2(0, 0);
+  if (s >= 0 && s < shards &&
+      (bsids == nullptr || served_by_plan(bsids, ndist, i, s, k_slots)))
+    r = foresight_walk(fused + (size_t)s * (size_t)levels * (size_t)cap,
+                       queries[i], levels, cap, max_steps);
+  node[i] = r.x;
+  key[i] = r.y;
+}
+
+// K4 and K6: bsids == nullptr is the dense K4.
+__global__ void __launch_bounds__(kBlock)
+base_sharded_kernel(const int* __restrict__ nxt, const int* __restrict__ keys,
+                    const int* __restrict__ bsids,
+                    const int* __restrict__ ndist,
+                    const int* __restrict__ sids,
+                    const int* __restrict__ queries, int* __restrict__ node,
+                    int* __restrict__ key, long long batch, int shards,
+                    int k_slots, int levels, long long cap,
+                    long long max_steps) {
+  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+  if (i >= batch) return;
+  const int s = sids[i];
+  int2 r = make_int2(0, 0);
+  if (s >= 0 && s < shards &&
+      (bsids == nullptr || served_by_plan(bsids, ndist, i, s, k_slots)))
+    r = base_walk(nxt + (size_t)s * (size_t)levels * (size_t)cap,
+                  keys + (size_t)s * (size_t)cap, queries[i], levels, cap,
+                  max_steps);
+  node[i] = r.x;
+  key[i] = r.y;
 }
 
 unsigned grid_for(long long batch) {
@@ -100,6 +192,57 @@ int base_traverse_launch(const void* nxt, const void* keys,
   base_kernel<<<grid_for(batch), kBlock, 0, (cudaStream_t)stream>>>(
       (const int*)nxt, (const int*)keys, (const int*)queries, (int*)node,
       (int*)key, batch, levels, cap, max_steps);
+  return (int)cudaGetLastError();
+}
+
+int foresight_sharded_launch(const void* fused, const void* sids,
+                             const void* queries, void* node, void* key,
+                             long long batch, int shards, int levels,
+                             long long cap, long long max_steps,
+                             void* stream) {
+  foresight_sharded_kernel<<<grid_for(batch), kBlock, 0,
+                             (cudaStream_t)stream>>>(
+      (const int2*)fused, nullptr, nullptr, (const int*)sids,
+      (const int*)queries, (int*)node, (int*)key, batch, shards, 0, levels,
+      cap, max_steps);
+  return (int)cudaGetLastError();
+}
+
+int base_sharded_launch(const void* nxt, const void* keys, const void* sids,
+                        const void* queries, void* node, void* key,
+                        long long batch, int shards, int levels,
+                        long long cap, long long max_steps, void* stream) {
+  base_sharded_kernel<<<grid_for(batch), kBlock, 0, (cudaStream_t)stream>>>(
+      (const int*)nxt, (const int*)keys, nullptr, nullptr, (const int*)sids,
+      (const int*)queries, (int*)node, (int*)key, batch, shards, 0, levels,
+      cap, max_steps);
+  return (int)cudaGetLastError();
+}
+
+int foresight_clustered_launch(const void* fused, const void* bsids,
+                               const void* ndist, const void* sids,
+                               const void* queries, void* node, void* key,
+                               long long batch, int shards, int k_slots,
+                               int levels, long long cap, long long max_steps,
+                               void* stream) {
+  foresight_sharded_kernel<<<grid_for(batch), kBlock, 0,
+                             (cudaStream_t)stream>>>(
+      (const int2*)fused, (const int*)bsids, (const int*)ndist,
+      (const int*)sids, (const int*)queries, (int*)node, (int*)key, batch,
+      shards, k_slots, levels, cap, max_steps);
+  return (int)cudaGetLastError();
+}
+
+int base_clustered_launch(const void* nxt, const void* keys,
+                          const void* bsids, const void* ndist,
+                          const void* sids, const void* queries, void* node,
+                          void* key, long long batch, int shards, int k_slots,
+                          int levels, long long cap, long long max_steps,
+                          void* stream) {
+  base_sharded_kernel<<<grid_for(batch), kBlock, 0, (cudaStream_t)stream>>>(
+      (const int*)nxt, (const int*)keys, (const int*)bsids,
+      (const int*)ndist, (const int*)sids, (const int*)queries, (int*)node,
+      (int*)key, batch, shards, k_slots, levels, cap, max_steps);
   return (int)cudaGetLastError();
 }
 

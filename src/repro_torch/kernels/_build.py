@@ -25,18 +25,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _LL = ctypes.c_longlong
+# Every launcher takes its input pointers (queries last), the node and key
+# output pointers, the batch, its sizes, max_steps and the stream.
 _SIGNATURES = {
-    # fused, queries, node, key, batch, levels, cap, max_steps, stream
-    "foresight_traverse_launch": [_P, _P, _P, _P, _LL, ctypes.c_int, _LL,
-                                  _LL, _P],
-    # nxt, keys, queries, node, key, batch, levels, cap, max_steps, stream
-    "base_traverse_launch": [_P, _P, _P, _P, _P, _LL, ctypes.c_int, _LL,
-                             _LL, _P],
-    # fused, auth_keys, queries, node, key, batch, levels, cap, max_steps,
-    # stream
-    "validated_traverse_launch": [_P, _P, _P, _P, _P, _LL, ctypes.c_int, _LL,
-                                  _LL, _P],
+    # fused, queries | levels, cap
+    "foresight_traverse_launch": [_P] * 4 + [_LL, _I, _LL, _LL, _P],
+    # nxt, keys, queries | levels, cap
+    "base_traverse_launch": [_P] * 5 + [_LL, _I, _LL, _LL, _P],
+    # fused, auth_keys, queries | levels, cap
+    "validated_traverse_launch": [_P] * 5 + [_LL, _I, _LL, _LL, _P],
+    # fused, shard_ids, queries | shards, levels, cap
+    "foresight_sharded_launch": [_P] * 5 + [_LL, _I, _I, _LL, _LL, _P],
+    # nxt, keys, shard_ids, queries | shards, levels, cap
+    "base_sharded_launch": [_P] * 6 + [_LL, _I, _I, _LL, _LL, _P],
+    # fused, block_sids, ndist, shard_ids, queries | shards, K, levels, cap
+    "foresight_clustered_launch": [_P] * 7 + [_LL, _I, _I, _I, _LL, _LL,
+                                              _P],
+    # nxt, keys, block_sids, ndist, shard_ids, queries | shards, K, levels,
+    # cap
+    "base_clustered_launch": [_P] * 8 + [_LL, _I, _I, _I, _LL, _LL, _P],
 }
 
 

@@ -1,11 +1,18 @@
 """Batched skiplist traversal: hand-written CUDA kernels and plain versions.
 
-Port of the monolithic kernels of ``repro.kernels.foresight_traverse``:
+Port of the kernels of ``repro.kernels.foresight_traverse``:
 
 * ``foresight_traverse`` (K1): ONE read of the fused ``(ptr, key)`` record
   per step.
 * ``base_traverse`` (K2): TWO dependent reads per step, the pointer and
   then the pointee's key; the paper's baseline.
+* ``foresight_traverse_sharded`` / ``base_traverse_sharded`` (K3 / K4):
+  the same walks over stacked shard tables, each lane in the shard its
+  ``shard_ids`` entry names.
+* ``foresight_traverse_clustered`` / ``base_traverse_clustered`` (K5 /
+  K6): K3 / K4 on a shard-sorted batch of 128-lane blocks (``QBLK``),
+  serving lane ``i`` of block ``j`` only if its shard is one of the
+  block's ``block_sids[j, :ndist[j]]`` (``kernels.ops.cluster_queries``).
 
 Each wrapper launches its kernel (``csrc/traverse.cu``) on CUDA tensors and
 runs its plain version on CPU tensors; any other device raises.  Each has a
@@ -16,8 +23,11 @@ Semantics are those of the reference's ``_traverse_loop``: every query
 starts at the head on level ``L-1`` and advances or descends once per
 step until it is below level 0 or ``max_steps`` steps have run.  The
 kernels give each query its own thread and loop; the reference's 128-lane
-blocks (``QBLK``) and their padding have no counterpart, and the batch may
-have any length.
+blocks and their padding have no counterpart in K1-K4, and the batch may
+have any length.  K5 / K6 keep ``QBLK`` only as the block that
+``block_sids`` and ``ndist`` describe; a lane whose shard is outside
+``[0, S)`` or, in K5 / K6, not among its block's slots is not served and
+gets ``(0, 0)``, the reference's initial output.
 """
 from __future__ import annotations
 
@@ -26,6 +36,8 @@ from typing import Callable, Tuple
 import torch
 
 from repro_torch.kernels import _build
+
+QBLK = 128     # query lanes per block of the clustered launch plan
 
 
 def traversal_bound(levels: int, capacity: int) -> int:
@@ -101,6 +113,78 @@ def base_traverse_plain(nxt: torch.Tensor, keys: torch.Tensor,
     return gather(torch.zeros_like(x), x)
 
 
+def _sharded_gather(tables, shard_ids: torch.Tensor):
+    """K1's or K2's gather over stacked tables, in shard ``shard_ids[i]``
+    per lane (a shard id outside ``[0, S)`` reads shard 0)."""
+    S = tables[0].shape[0]
+    sid = torch.where((shard_ids >= 0) & (shard_ids < S), shard_ids, 0)
+    sid = sid.long()
+    if len(tables) == 1:                       # fused [S, L, cap, 2]
+        _, L, cap, _ = tables[0].shape
+        gather = _fused_gather(tables[0].reshape(S * L, cap, 2))
+        return lambda lvl, x: gather(sid * L + lvl.long(), x)
+    nxt, keys = tables                         # [S, L, cap], [S, cap]
+    _, L, cap = nxt.shape
+    flat_nxt, flat_keys = nxt.reshape(-1), keys.reshape(-1)
+
+    def gather(lvl, x):
+        ptr = flat_nxt[(sid * L + lvl.long()) * cap + x.long()]
+        return ptr, flat_keys[sid * cap + ptr.long()]
+    return gather
+
+
+def _clustered_served(block_sids, ndist, shard_ids):
+    """Lane ``i`` of block ``j = i // QBLK`` is served iff its shard is
+    ``block_sids[j, k]`` for some ``k < ndist[j]``."""
+    nblk, K = block_sids.shape
+    j = torch.arange(shard_ids.shape[0], device=shard_ids.device) // QBLK
+    slots = torch.arange(K, device=shard_ids.device)
+    hit = (block_sids[j] == shard_ids[:, None]) & \
+        (slots[None, :] < ndist[j][:, None])
+    return hit.any(dim=1)
+
+
+def _sharded_plain(tables, shard_ids, queries, max_steps, plan=()):
+    """Every lane's walk in its shard; a lane whose shard is outside
+    ``[0, S)`` or, given a ``plan`` ``(block_sids, ndist)``, not among its
+    block's slots is not served and gives (0, 0)."""
+    S, L, cap = tables[0].shape[:3]
+    served = (shard_ids >= 0) & (shard_ids < S)
+    if plan:
+        served &= _clustered_served(*plan, shard_ids)
+    gather = _sharded_gather(tables, shard_ids)
+    x = _traverse_loop(queries, gather, levels=L,
+                       max_steps=max_steps or traversal_bound(L, cap))
+    node, key = gather(torch.zeros_like(x), x)
+    return torch.where(served, node, 0), torch.where(served, key, 0)
+
+
+def foresight_traverse_sharded_plain(fused, shard_ids, queries, *,
+                                     max_steps: int = 0):
+    """Plain-tensor K3: (node [B], cand_key [B]), node ids shard-local."""
+    return _sharded_plain((fused,), shard_ids, queries, max_steps)
+
+
+def base_traverse_sharded_plain(nxt, keys, shard_ids, queries, *,
+                                max_steps: int = 0):
+    """Plain-tensor K4: (node [B], cand_key [B]), node ids shard-local."""
+    return _sharded_plain((nxt, keys), shard_ids, queries, max_steps)
+
+
+def foresight_traverse_clustered_plain(fused, block_sids, ndist, shard_ids,
+                                       queries, *, max_steps: int = 0):
+    """Plain-tensor K5: (node [B], cand_key [B]) in the sorted order."""
+    return _sharded_plain((fused,), shard_ids, queries, max_steps,
+                          (block_sids, ndist))
+
+
+def base_traverse_clustered_plain(nxt, keys, block_sids, ndist, shard_ids,
+                                  queries, *, max_steps: int = 0):
+    """Plain-tensor K6: (node [B], cand_key [B]) in the sorted order."""
+    return _sharded_plain((nxt, keys), shard_ids, queries, max_steps,
+                          (block_sids, ndist))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -116,6 +200,32 @@ def _check_cuda(name: str, queries: torch.Tensor, *tables: torch.Tensor):
                              f"on {dev}; got {t.dtype} on {t.device}")
 
 
+def _check_int2(name: str, fused: torch.Tensor):
+    if fused.data_ptr() % 8:
+        raise ValueError(f"{name}: fused must be 8-byte aligned (the kernel "
+                         "reads each record as one int2)")
+
+
+def launch_walk(wrapper, symbol: str, inputs, sizes, max_steps: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``symbol`` (a ``csrc`` launcher) on one thread per query.
+
+    Its C arguments are the pointers of ``inputs`` (queries last), of the
+    outputs node and key, then the batch, ``sizes`` and ``max_steps``, and
+    the current stream.  Counts the launch on ``wrapper``; an empty batch
+    launches nothing.
+    """
+    q = inputs[-1]
+    node, key = torch.empty_like(q), torch.empty_like(q)
+    if q.numel():
+        with torch.cuda.device(q.device):
+            _build.launch(symbol, *(t.data_ptr() for t in inputs),
+                          node.data_ptr(), key.data_ptr(), q.numel(), *sizes,
+                          max_steps, torch.cuda.current_stream().cuda_stream)
+        wrapper.launches += 1
+    return node, key
+
+
 def foresight_traverse(fused: torch.Tensor, queries: torch.Tensor, *,
                        max_steps: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -129,19 +239,10 @@ def foresight_traverse(fused: torch.Tensor, queries: torch.Tensor, *,
     if fused.device.type == "cpu":
         return foresight_traverse_plain(fused, q, max_steps=max_steps)
     _check_cuda("foresight_traverse", q, fused)
-    if fused.data_ptr() % 8:
-        raise ValueError("foresight_traverse: fused must be 8-byte aligned "
-                         "(the kernel reads each record as one int2)")
-    node, key = torch.empty_like(q), torch.empty_like(q)
-    if q.numel():
-        with torch.cuda.device(fused.device):
-            _build.launch("foresight_traverse_launch", fused.data_ptr(),
-                          q.data_ptr(), node.data_ptr(), key.data_ptr(),
-                          q.numel(), L, cap,
-                          max_steps or traversal_bound(L, cap),
-                          torch.cuda.current_stream().cuda_stream)
-        foresight_traverse.launches += 1
-    return node, key
+    _check_int2("foresight_traverse", fused)
+    return launch_walk(foresight_traverse, "foresight_traverse_launch",
+                       (fused, q), (L, cap),
+                       max_steps or traversal_bound(L, cap))
 
 
 def base_traverse(nxt: torch.Tensor, keys: torch.Tensor,
@@ -156,17 +257,124 @@ def base_traverse(nxt: torch.Tensor, keys: torch.Tensor,
     if nxt.device.type == "cpu":
         return base_traverse_plain(nxt, keys, q, max_steps=max_steps)
     _check_cuda("base_traverse", q, nxt, keys)
-    node, key = torch.empty_like(q), torch.empty_like(q)
-    if q.numel():
-        with torch.cuda.device(nxt.device):
-            _build.launch("base_traverse_launch", nxt.data_ptr(),
-                          keys.data_ptr(), q.data_ptr(), node.data_ptr(),
-                          key.data_ptr(), q.numel(), L, cap,
-                          max_steps or traversal_bound(L, cap),
-                          torch.cuda.current_stream().cuda_stream)
-        base_traverse.launches += 1
-    return node, key
+    return launch_walk(base_traverse, "base_traverse_launch",
+                       (nxt, keys, q), (L, cap),
+                       max_steps or traversal_bound(L, cap))
+
+
+def _check_lanes(name: str, shard_ids: torch.Tensor, queries: torch.Tensor):
+    if shard_ids.shape != queries.shape:
+        raise ValueError(f"{name}: shard_ids {list(shard_ids.shape)} and "
+                         f"queries {list(queries.shape)} differ")
+
+
+def _check_plan(name: str, n_shards: int, block_sids: torch.Tensor,
+                ndist: torch.Tensor, queries: torch.Tensor):
+    nblk, K = block_sids.shape
+    if ndist.shape != (nblk,) or queries.shape[0] != nblk * QBLK:
+        raise ValueError(f"{name}: the batch must be the plan's {nblk} "
+                         f"blocks of {QBLK} lanes, with ndist [{nblk}]")
+    if K > n_shards:
+        raise ValueError(f"{name}: a plan with K={K} > S={n_shards} was "
+                         "built for another shard count (stale after a "
+                         "rebalance?); rebuild it from the current "
+                         "boundaries")
+
+
+def foresight_traverse_sharded(fused: torch.Tensor, shard_ids: torch.Tensor,
+                               queries: torch.Tensor, *, max_steps: int = 0
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense sharded foresight search (K3) over ``fused [S, L, cap, 2]``.
+
+    Lane ``i`` walks shard ``shard_ids[i]``; returns (node [B], cand_key
+    [B]) with shard-local node ids.  ``max_steps`` 0 means
+    ``traversal_bound(L, cap)`` of one shard.
+    """
+    S, L, cap, _ = fused.shape
+    q, sid = queries.to(torch.int32), shard_ids.to(torch.int32)
+    _check_lanes("foresight_traverse_sharded", sid, q)
+    if fused.device.type == "cpu":
+        return foresight_traverse_sharded_plain(fused, sid, q,
+                                                max_steps=max_steps)
+    _check_cuda("foresight_traverse_sharded", q, fused, sid)
+    _check_int2("foresight_traverse_sharded", fused)
+    return launch_walk(foresight_traverse_sharded,
+                       "foresight_sharded_launch", (fused, sid, q),
+                       (S, L, cap), max_steps or traversal_bound(L, cap))
+
+
+def base_traverse_sharded(nxt: torch.Tensor, keys: torch.Tensor,
+                          shard_ids: torch.Tensor, queries: torch.Tensor, *,
+                          max_steps: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense sharded base search (K4) over ``nxt [S, L, cap]`` and
+    ``keys [S, cap]``."""
+    S, L, cap = nxt.shape
+    q, sid = queries.to(torch.int32), shard_ids.to(torch.int32)
+    _check_lanes("base_traverse_sharded", sid, q)
+    if nxt.device.type == "cpu":
+        return base_traverse_sharded_plain(nxt, keys, sid, q,
+                                           max_steps=max_steps)
+    _check_cuda("base_traverse_sharded", q, nxt, keys, sid)
+    return launch_walk(base_traverse_sharded, "base_sharded_launch",
+                       (nxt, keys, sid, q), (S, L, cap),
+                       max_steps or traversal_bound(L, cap))
+
+
+def foresight_traverse_clustered(fused: torch.Tensor,
+                                 block_sids: torch.Tensor,
+                                 ndist: torch.Tensor,
+                                 shard_ids: torch.Tensor,
+                                 queries: torch.Tensor, *,
+                                 max_steps: int = 0
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Clustered foresight search (K5) over ``fused [S, L, cap, 2]``.
+
+    ``queries`` / ``shard_ids`` are shard-sorted, ``nblk * QBLK`` lanes,
+    with ``block_sids [nblk, K]`` and ``ndist [nblk]`` built for that
+    order (``kernels.ops.cluster_queries``).  Returns (node, cand_key) in
+    the sorted order.
+    """
+    S, L, cap, _ = fused.shape
+    q, sid = queries.to(torch.int32), shard_ids.to(torch.int32)
+    bs, nd = block_sids.to(torch.int32), ndist.to(torch.int32)
+    _check_lanes("foresight_traverse_clustered", sid, q)
+    _check_plan("foresight_traverse_clustered", S, bs, nd, q)
+    if fused.device.type == "cpu":
+        return foresight_traverse_clustered_plain(fused, bs, nd, sid, q,
+                                                  max_steps=max_steps)
+    _check_cuda("foresight_traverse_clustered", q, fused, bs, nd, sid)
+    _check_int2("foresight_traverse_clustered", fused)
+    return launch_walk(foresight_traverse_clustered,
+                       "foresight_clustered_launch", (fused, bs, nd, sid, q),
+                       (S, bs.shape[1], L, cap),
+                       max_steps or traversal_bound(L, cap))
+
+
+def base_traverse_clustered(nxt: torch.Tensor, keys: torch.Tensor,
+                            block_sids: torch.Tensor, ndist: torch.Tensor,
+                            shard_ids: torch.Tensor, queries: torch.Tensor,
+                            *, max_steps: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Clustered base search (K6) over ``nxt [S, L, cap]`` and
+    ``keys [S, cap]``."""
+    S, L, cap = nxt.shape
+    q, sid = queries.to(torch.int32), shard_ids.to(torch.int32)
+    bs, nd = block_sids.to(torch.int32), ndist.to(torch.int32)
+    _check_lanes("base_traverse_clustered", sid, q)
+    _check_plan("base_traverse_clustered", S, bs, nd, q)
+    if nxt.device.type == "cpu":
+        return base_traverse_clustered_plain(nxt, keys, bs, nd, sid, q,
+                                             max_steps=max_steps)
+    _check_cuda("base_traverse_clustered", q, nxt, keys, bs, nd, sid)
+    return launch_walk(base_traverse_clustered, "base_clustered_launch",
+                       (nxt, keys, bs, nd, sid, q), (S, bs.shape[1], L, cap),
+                       max_steps or traversal_bound(L, cap))
 
 
 foresight_traverse.launches = 0
 base_traverse.launches = 0
+foresight_traverse_sharded.launches = 0
+base_traverse_sharded.launches = 0
+foresight_traverse_clustered.launches = 0
+base_traverse_clustered.launches = 0

@@ -24,8 +24,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.foresight_traverse import _check_cuda, _traverse_loop
+from repro_torch.kernels.foresight_traverse import (_check_cuda, _check_int2,
+                                                    _traverse_loop,
+                                                    launch_walk)
 
 
 def default_max_steps(levels: int) -> int:
@@ -78,19 +79,10 @@ def validated_traverse(fused: torch.Tensor, auth_keys: torch.Tensor,
     if auth_keys.shape != (cap,):
         raise ValueError(f"validated_traverse: auth_keys must be [{cap}]; "
                          f"got {list(auth_keys.shape)}")
-    if fused.data_ptr() % 8:
-        raise ValueError("validated_traverse: fused must be 8-byte aligned "
-                         "(the kernel reads each record as one int2)")
-    node, key = torch.empty_like(q), torch.empty_like(q)
-    if q.numel():
-        with torch.cuda.device(fused.device):
-            _build.launch("validated_traverse_launch", fused.data_ptr(),
-                          auth_keys.data_ptr(), q.data_ptr(), node.data_ptr(),
-                          key.data_ptr(), q.numel(), L, cap,
-                          max_steps or default_max_steps(L),
-                          torch.cuda.current_stream().cuda_stream)
-        validated_traverse.launches += 1
-    return node, key
+    _check_int2("validated_traverse", fused)
+    return launch_walk(validated_traverse, "validated_traverse_launch",
+                       (fused, auth_keys, q), (L, cap),
+                       max_steps or default_max_steps(L))
 
 
 validated_traverse.launches = 0

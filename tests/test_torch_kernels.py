@@ -20,7 +20,7 @@ from repro.kernels import ref as kref
 from repro.kernels.foresight_traverse import (base_traverse,
                                               foresight_traverse,
                                               traversal_bound)
-from repro_torch.convert import state_from_numpy
+from repro_torch.convert import sharded_from_numpy, state_from_numpy
 from repro_torch.core import skiplist as tsl
 from repro_torch.kernels import foresight_traverse as tft
 from repro_torch.kernels import ops as tops
@@ -125,6 +125,9 @@ def test_search_kernel_float_matches_repro():
 
 
 def test_search_kernel_rejects_sharded_states():
+    """A state that is not the port's (repro's sharded index here, or a mesh
+    index) is refused; stacked arrays convert through sharded_from_numpy
+    only, into the port's ShardedSkipList, which search_kernel takes."""
     keys = jnp.arange(1, 200, dtype=jnp.int32)
     sharded = shd.build_sharded(keys, keys, n_shards=2, levels=6)
     q = torch.zeros(4, dtype=torch.int32)
@@ -132,8 +135,16 @@ def test_search_kernel_rejects_sharded_states():
         tops.search_kernel(sharded, q)
     arrays = {k: np.asarray(v) for k, v in sharded.shards._asdict().items()
               if v is not None}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="sharded_from_numpy"):
         state_from_numpy(arrays, "cpu")
+    port = sharded_from_numpy({**{f"shards.{k}": v for k, v in arrays.items()},
+                               "boundaries": np.asarray(sharded.boundaries)},
+                              "cpu")
+    want = kops.search_kernel(sharded, jnp.arange(0, 210, 7, dtype=jnp.int32))
+    got = tops.search_kernel(port, torch.arange(0, 210, 7, dtype=torch.int32))
+    for f in want._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)))
 
 
 def test_index_range_limit_is_checked_on_shapes():
@@ -176,6 +187,7 @@ def test_import_leaves_jax_unloaded():
             "import repro_torch.kernels._build\n"
             "import repro_torch.core.validated, repro_torch.core.versioned\n"
             "import repro_torch.kernels.validated_traverse\n"
+            "import repro_torch.core.sharded\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']\n"
             "assert not bad, bad\n")
