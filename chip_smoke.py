@@ -50,7 +50,34 @@ Phases, one JSON line each:
    invariant and an unchanged input; kernel, plain, plan, end-to-end and
    ``torch.searchsorted`` times, bounds from a per-shard replay, path
    lengths, auto-K and the ``ndist`` histogram;
-9. the ``kernels`` line: every ported kernel with its main-path launches.
+9. small fat check, node widths B = 8 and 128, both variants: a fat
+   ``build`` (n=4000), ``build_sharded`` (n=1500, S=8), ``split_shard`` to
+   S=9, ``merge_shards`` and ``repack`` on the card equal the CPU; K1-K6
+   with the K9 postlude equal their plain versions on a half-hit batch at
+   the default step cap and at 9 steps; the S=9 straddle stream takes K7
+   and equals the CPU; a mixed ``apply_ops`` stream on a dense key range
+   runs every insert case (upsert, room, split, first node) and every
+   delete case (plain, minimum lane, node emptied) and equals the CPU;
+   ``apply_ops_sharded(rebalance=True)`` on Zipf inserts, ``range_scan``,
+   ``range_scan_sharded`` and ``check_fat_invariant`` equal the CPU; K1
+   with K9 at B = 6 (the scalar tail of the run compare) equals its plain
+   version;
+10. the fat layout at the paper's size: the same 2^25 keys packed into
+   runs (``benchmarks/common.py:26-41``, ``benchmarks/fig_fat_node.py``):
+   B = 128 (2^19 nodes, capacity 2^21, L = 27), both variants, and B = 8
+   (capacity 2^25), foresight, through ``search_kernel`` (K1/K2 + K9);
+   B = 128 over S = 64 shards (2^15 node slots a shard, L = 21), both
+   traffics through the dense and clustered paths (K3-K6 + K9, K7) and
+   the eager ``search_sharded``; answers held against the numpy oracle and
+   the scalar phases' answers, every kernel against its plain version,
+   node ids dereferenced into ``fat_vals``; 256 updates of fig3's upd=50%
+   mix through ``apply_ops`` (B = 128 monolith) and ``apply_ops_sharded``
+   against the host oracle, then ``check_fat_invariant`` and an unchanged
+   input; K9 alone (``fat_resolve``) checked and timed on the final
+   predecessors; times, bounds from a replay that counts distinct records
+   plus distinct runs x B x 4 bytes, path lengths, peak memory;
+11. the ``kernels`` line: every ported kernel with its main-path launches,
+   the fat launches of K1-K6 as rows of their own, and ``fat_resolve``.
 
 Then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check, build or launch raises, and the script exits non-zero.
@@ -96,6 +123,10 @@ UPDATE_OPS = 1024
 SHARDS, SHARD_LEVELS = 64, 21
 SHARD_UPDATE_OPS = 256
 ZIPF_A = 1.2             # benchmarks/common.py:55-60, YCSB-style hot keys
+# The fat configuration: fig_fat_node's acceptance width B = 128 and its
+# narrowest B = 8 (benchmarks/fig_fat_node.py:42), capacity as
+# benchmarks/common.py:37-38 sizes it; the sharded one keeps S = 64.
+FAT_WIDTHS = (128, 8)
 TRAVERSE_CU = "src/repro_torch/csrc/traverse.cu"
 FT_PY = "src/repro/kernels/foresight_traverse.py"
 KERNELS = {   # name -> (wrapper, plain version, source, TPU kernel replaced)
@@ -133,10 +164,16 @@ def check(ok: bool, what: str) -> None:
 def reset_launches() -> None:
     for wrapper, *_ in KERNELS.values():
         wrapper.launches = 0
+    for wrapper in ft.WALKS:
+        wrapper.fat_launches = 0
+    ft.fat_resolve.launches = 0
 
 
 def read_launches() -> dict:
-    return {name: w.launches for name, (w, *_) in KERNELS.items()}
+    out = {name: w.launches for name, (w, *_) in KERNELS.items()}
+    out.update({f"{w.__name__}/fat": w.fat_launches for w in ft.WALKS})
+    out["fat_resolve"] = ft.fat_resolve.launches
+    return out
 
 
 def table_args(st: sl.SkipListState):
@@ -167,7 +204,8 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def path_footprint(tables, q: torch.Tensor, sid=None) -> dict:
+def path_footprint(tables, q: torch.Tensor, sid=None, fat_keys=None
+                   ) -> dict:
     """Distinct index entries the batch's paths read, and the path lengths.
 
     ``tables`` is ``(fused,)`` or ``(nxt, keys)`` with a leading shard axis
@@ -176,8 +214,11 @@ def path_footprint(tables, q: torch.Tensor, sid=None) -> dict:
     traversal with plain tensor ops, keeps every index each active lane
     reads (the loop's reads and the final level-0 read) and counts the
     distinct ones with ``torch.unique``.  Foresight reads 8-byte fused
-    records; base reads 4-byte ``nxt`` entries and 4-byte ``keys``.  Also
-    counts the distinct 32-byte sectors (the smallest unit HBM serves).
+    records; base reads 4-byte ``nxt`` entries and 4-byte ``keys``.  With
+    ``fat_keys [S, cap, B]`` the K9 postlude also reads each query's owner
+    run, ``B`` 4-byte keys: distinct runs x B x 4 bytes, and ``B``
+    compares a query.  Also counts the distinct 32-byte sectors (the
+    smallest unit HBM serves).
     """
     foresight = len(tables) == 1
     S, L, cap = tables[0].shape[:3]
@@ -212,8 +253,21 @@ def path_footprint(tables, q: torch.Tensor, sid=None) -> dict:
     distinct = sum(int(torch.unique(i).numel()) * b for i, b in arrays)
     sectors = sum(int(torch.unique(i * b // 32).numel()) * 32
                   for i, b in arrays)
-    return dict(distinct_bytes=distinct, sector_bytes=sectors,
-                steps=int(path.sum()), path=path)
+    out = dict(distinct_bytes=distinct, sector_bytes=sectors,
+               steps=int(path.sum()), path=path, x=x)
+    if fat_keys is not None:
+        B = fat_keys.shape[-1]
+        if foresight:
+            cand, ck = flat[last].unbind(1)
+        else:
+            cand = flat[last]
+            ck = tables[1].reshape(-1)[sid * cap + cand.long()]
+        owner = torch.where((ck == q) | (x == 0), cand, x)
+        runs = int(torch.unique(sid * cap + owner.long()).numel())
+        out.update(distinct_runs=runs, compares=B * q.numel())
+        out["distinct_bytes"] += runs * B * 4
+        out["sector_bytes"] += runs * -(-B * 4 // 32) * 32
+    return out
 
 
 def card_identity() -> str:
@@ -790,11 +844,15 @@ def fingerprint(shl: shd.ShardedSkipList) -> list:
 
 
 def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
-                      foresight: bool, first: dict) -> tuple:
+                      foresight: bool, first: dict, width: int = 1,
+                      scalar: dict = None) -> tuple:
     """The paper's keys over 64 shards: build, both traffics through the
     dense and clustered paths, one update batch (``stream``: the ops and
     their host-oracle answers), then checks, times and bounds.  ``first``
-    carries the foresight run's answers to the base run.  Returns
+    carries the foresight run's answers to the base run.  ``width`` > 1
+    builds fat shards (K9 in every launch; the eager ``search_sharded``
+    and node ids into ``fat_vals`` are checked too, and ``scalar``, the
+    scalar runs' answers, must give the same found and vals).  Returns
     (kernels-line rows, answers)."""
     stage_s, t_stage = {}, time.perf_counter()
     t_phase = t_stage
@@ -808,7 +866,10 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
 
     dev = torch.device(DEVICE)
     v = variant(foresight)
+    fat = width > 1
     dense, clus = sharded_names(foresight)
+    row = (lambda n: fat_row_name(n, width)) if fat else (lambda n: n)
+    count = (lambda n: f"{n}/fat") if fat else (lambda n: n)
     (types, ks, vs), want_results, current = stream
     qs = {name: torch.from_numpy(q).to(dev) for name, q in traffic.items()}
     torch.cuda.reset_peak_memory_stats()
@@ -819,7 +880,9 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
     shl = shd.build_sharded(torch.from_numpy(keys_np).to(dev),
                             torch.from_numpy(keys_np + 1).to(dev),
                             n_shards=SHARDS, levels=SHARD_LEVELS,
-                            foresight=foresight, seed=SEED, device=dev)
+                            foresight=foresight, seed=SEED,
+                            node_width=width, device=dev)
+    fatk = shl.shards.fat_keys                     # None on scalar shards
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     res = {(name, cl): ops.search_kernel_sharded(shl, q, cluster=cl)
@@ -834,13 +897,30 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
     launches = read_launches()
     lap("main_path")
     for name in (dense, clus):
-        check(launches[name] >= 1, f"sharded path launched {name}")
+        check(launches[count(name)] >= 1, f"sharded path launched {name} "
+                                          f"(width {width})")
+    if fat:
+        check(launches["fat_resolve"] >= 1, "sharded path ran K9")
 
     answers = {}
     for (name, cl), r in res.items():
-        what = f"{v} {name} cluster={cl}"
+        what = f"{v} width {width} {name} cluster={cl}"
         check_lookups(r.found, r.vals, traffic[name], keys_np, what)
         answers[(name, cl)] = [t.cpu() for t in r]
+        if fat:
+            hit = r.found
+            check(torch.equal(shl.shards.fat_vals.reshape(-1)[
+                r.node[hit].long()], r.vals[hit]),
+                f"{what}: node ids dereference into fat_vals")
+            check(all(torch.equal(a, b) for a, b in zip(
+                answers[(name, cl)][:2], scalar[(name, cl)][:2])),
+                f"{what}: found and vals equal the scalar run's")
+    if fat:            # S * L * cap = 4.4e7: the eager search takes it
+        for name, q in qs.items():
+            f, vals = shd.search_sharded(shl, q)
+            check(torch.equal(f, res[(name, False)].found) and
+                  torch.equal(vals, res[(name, False)].vals),
+                  f"{v} fat search_sharded equals the kernels ({name})")
     for name in qs:
         check(all(torch.equal(a, b) for a, b in
                   zip(answers[(name, True)], answers[(name, False)])),
@@ -855,17 +935,24 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
                   current, "search_kernel_sharded after the update")
     check(bool(shd.check_sharded_invariant(new, expect_n=len(current))),
           "sharded invariant and live count after the update")
+    if fat:
+        check(all(bool(sl.check_fat_invariant(shd.shard_view(new.shards, s)))
+                  for s in range(new.n_shards)),
+              "check_fat_invariant on every shard after the update")
     check(fingerprint(shl) == before, "apply_ops_sharded leaves its input "
                                       "unchanged")
     del new, after_update
     torch.cuda.empty_cache()
     lap("oracle_checks")
 
-    report = {"phase": "sharded_full_size", "variant": v, "n": FULL_N,
-              "shards": SHARDS, "levels": SHARD_LEVELS,
+    phase = "fat_sharded_full_size" if fat else "sharded_full_size"
+    report = {"phase": phase, "variant": v, "node_width": width,
+              "n": FULL_N, "shards": SHARDS, "levels": SHARD_LEVELS,
               "shard_capacity": shl.shard_capacity,
               "index_gb": SHARDS * ops.tile_bytes(
-                  SHARD_LEVELS, shl.shard_capacity, foresight) / 1e9,
+                  SHARD_LEVELS, shl.shard_capacity, foresight, width) / 1e9,
+              "stack_gb": sum(t.numel() * t.element_size()
+                              for t in shl.shards if t is not None) / 1e9,
               "build_s": build_s, "update_ops": SHARD_UPDATE_OPS,
               "update_s": update_s,
               "update_us_per_op": update_s / SHARD_UPDATE_OPS * 1e6}
@@ -877,20 +964,21 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
         split = ops.plan_degeneration_split(plan.ndist, SHARDS)
         clus_args = (plan.block_sids, plan.ndist, plan.sid_sorted,
                      plan.q_sorted)
-        fp = path_footprint(shard_tables(shl), q, sid)
+        fp = path_footprint(shard_tables(shl), q, sid, fatk)
         lap("footprint_replay")
         t = {}
         for kname, args in ((dense, (sid, q)), (clus, clus_args)):
             wrapper, plain, *_ = KERNELS[kname]
-            err = max_abs_err(wrapper(*shard_tables(shl), *args),
-                              plain(*shard_tables(shl), *args))
-            check(err == 0, f"{kname} equals its plain version ({name})")
+            err = max_abs_err(wrapper(*shard_tables(shl), *args, fatk),
+                              plain(*shard_tables(shl), *args, fatk))
+            check(err == 0, f"{kname} (width {width}) equals its plain "
+                            f"version ({name})")
             t[kname] = dict(
                 err=err,
-                ms=time_ms(lambda: wrapper(*shard_tables(shl), *args),
+                ms=time_ms(lambda: wrapper(*shard_tables(shl), *args, fatk),
                            KERNEL_REPS),
-                plain_ms=time_ms(lambda: plain(*shard_tables(shl), *args),
-                                 PLAIN_REPS))
+                plain_ms=time_ms(lambda: plain(*shard_tables(shl), *args,
+                                               fatk), PLAIN_REPS))
         lap("kernel_checks_and_timing")
         plan_ms = time_ms(lambda: ops.cluster_queries(shl.boundaries, q),
                           KERNEL_REPS)
@@ -903,14 +991,18 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
         nblk, K = plan.block_sids.shape
         io = {dense: B * 4 * 4,                       # q, sid in; node, key
               clus: B * 4 * 4 + (nblk * K + nblk) * 4}   # + the plan
-        ops_ms = fp["steps"] / SCALAR_OPS_PER_S * 1e3    # one compare a step
+        # one compare a step, and B a query for K9's run
+        ops_ms = (fp["steps"] + fp.get("compares", 0)) \
+            / SCALAR_OPS_PER_S * 1e3
         nd = plan.ndist.cpu().numpy()
         report[name] = {
-            "phase": "sharded_full_size", "variant": v, "traffic": name,
+            "phase": phase, "variant": v, "node_width": width,
+            "traffic": name,
             "batch": B, "hits": int(res[(name, False)].found.sum()),
             "mean_path_steps": fp["steps"] / B,
             "max_path_steps": int(fp["path"].max()),
             "distinct_bytes": fp["distinct_bytes"],
+            "distinct_runs": fp.get("distinct_runs"),
             "sector_bytes": fp["sector_bytes"],
             "auto_k": K, "k7_split": None if split is None else {
                 "k_small": split[0], "keep_blocks": len(split[1]),
@@ -934,8 +1026,8 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
                 "bound_share": bound_ms / t[kname]["ms"]}
             wrapper, plain, source, replaces = KERNELS[kname]
             rows.setdefault(kname, {
-                "name": kname, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[kname],
+                "name": row(kname), "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[count(kname)],
                 "max_abs_err": t[kname]["err"], "ms": t[kname]["ms"],
                 "plain_ms": t[kname]["plain_ms"], "bound_ms": bound_ms,
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -949,9 +1041,360 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
     report["stage_s"] = stage_s
     report["seconds"] = time.perf_counter() - t_phase
     emit(report)
-    del shl, res, sorted_keys, qs
+    del shl, res, sorted_keys, qs, fatk
     torch.cuda.empty_cache()
     return list(rows.values()), answers
+
+
+def fat_tables(st: sl.SkipListState):
+    """A fat state's walk tables, then its run keys (the K9 argument)."""
+    return (*table_args(st), st.fat_keys)
+
+
+def fat_row_name(name: str, width: int) -> str:
+    return f"{name}/fat{width}"
+
+
+def check_fat_kernel(name: str, tables, args, report: dict, label: str,
+                     max_steps: int = 0) -> None:
+    """Kernel ``name`` with K9 equals its plain version on the card; the
+    launch is counted as a fat launch.  ``tables`` ends with fat_keys."""
+    wrapper, plain, *_ = KERNELS[name]
+    *walk, fat = tables
+    before = wrapper.fat_launches
+    got = wrapper(*walk, *args, fat, max_steps=max_steps)
+    check(wrapper.fat_launches == before + 1, f"{name} fat launch counted")
+    err = max_abs_err(got, plain(*walk, *args, fat, max_steps=max_steps))
+    check(err == 0, f"{name} + K9 equals its plain version ({label}, "
+                    f"max_steps={max_steps})")
+    report[f"{name}_{label}_steps{max_steps}_err"] = err
+
+
+def fat_case_stream(width: int, seed: int):
+    """Ops on the dense range [0, 1.25 B) that run every fat case: the
+    first node of an empty list, shifts with room, a median split,
+    upserts, deletes of a run's minimum and of an inner lane, emptied
+    runs, the list emptied and a first node again."""
+    rng = np.random.default_rng(seed)
+    span = width + width // 4
+    fill = rng.permutation(span).astype(np.int32)
+    mixed = rng.integers(0, span, 32).astype(np.int32)
+    drain = rng.permutation(span).astype(np.int32)
+    ks = np.concatenate([fill, fill[:4], mixed, drain, fill[:3]])
+    types = np.concatenate([
+        np.full(span + 4, sl.OP_INSERT), rng.integers(1, 3, 32),
+        np.full(span, sl.OP_DELETE), np.full(3, sl.OP_INSERT)])
+    return types.astype(np.int32), ks, ks * 5 + 1
+
+
+def small_fat_check() -> None:
+    """The fat layout on the card equals the CPU, at B = 8 and 128, both
+    variants; K1-K6 with K9 equal their plain versions; every update case
+    runs; K9's scalar tail at B = 6."""
+    rng = np.random.default_rng(SEED)
+    keys = small_keys()
+    keys_sh = np.sort(rng.choice(1 << 22, 1500, replace=False)
+                      ).astype(np.int32)
+    report = {"phase": "small_fat_check", "n": SMALL["n"], "levels": 14,
+              "sharded_n": 1500, "shards": "8, then 9"}
+    t0 = time.perf_counter()
+    for width in (8, 128):
+        for foresight in (True, False):
+            v = f"{variant(foresight)}{width}"
+            k1 = f"{variant(foresight)}_traverse"
+            args = dict(capacity=sl.node_slots_for(2 * SMALL["n"], width)
+                        + 4, levels=14, foresight=foresight,
+                        node_width=width, seed=SEED)
+            st = sl.build(keys, keys + 1, device=DEVICE, **args)
+            cpu = sl.build(keys, keys + 1, device="cpu", **args)
+            check_same_state(st, cpu, f"{v} fat build, card equals CPU")
+            q, = on(DEVICE, np.concatenate([rng.choice(keys, 2048),
+                                            rng.integers(0, 1 << 22, 2048)]
+                                           ).astype(np.int32))
+            for max_steps in (0, 9):
+                check_fat_kernel(k1, fat_tables(st), (q,), report, v,
+                                 max_steps)
+            got = ops.search_kernel(st, q)
+            want = ops.search_kernel(cpu, q.cpu())
+            check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+                  f"{v} fat search_kernel, card equals CPU")
+            for lo, hi, m in ((0, 1 << 22, 300), (int(keys[50]) + 1,
+                                                  int(keys[900]), 64)):
+                check(all(torch.equal(a.cpu(), b) for a, b in zip(
+                    sl.range_scan(st, lo, hi, m),
+                    sl.range_scan(cpu, lo, hi, m))),
+                      f"{v} fat range_scan, card equals CPU")
+
+            stream = fat_case_stream(width, SEED + width)
+            empty = {dev: sl.empty(8, 6, foresight=foresight, seed=SEED,
+                                   node_width=width, device=dev)
+                     for dev in (DEVICE, "cpu")}
+            sl.FAT_CASES.clear()
+            new, res = sl.apply_ops(empty[DEVICE], *on(DEVICE, *stream))
+            report[f"{v}_update_cases"] = dict(sl.FAT_CASES)
+            for case in ("insert_upsert", "insert_room", "insert_split",
+                         "insert_first", "delete_plain", "delete_min",
+                         "delete_emptied"):
+                check(sl.FAT_CASES[case] > 0, f"{v} update case {case} ran")
+            new_cpu, res_cpu = sl.apply_ops(empty["cpu"], *on("cpu",
+                                                              *stream))
+            check(torch.equal(res.cpu(), res_cpu),
+                  f"{v} fat apply_ops results, card equals CPU")
+            check_same_state(new, new_cpu, f"{v} fat apply_ops state")
+            check(bool(sl.check_fat_invariant(new)) and
+                  bool(sl.check_fat_invariant(new_cpu)),
+                  f"{v} check_fat_invariant after the stream")
+            check_same_state(empty[DEVICE], sl.empty(
+                8, 6, foresight=foresight, seed=SEED, node_width=width,
+                device="cpu"), f"{v} fat apply_ops leaves its input unchanged")
+
+            sargs = dict(n_shards=8, levels=12, foresight=foresight,
+                         node_width=width, seed=SEED)
+            shl = shd.build_sharded(keys_sh, keys_sh * 3, device=DEVICE,
+                                    **sargs)
+            shc = shd.build_sharded(keys_sh, keys_sh * 3, device="cpu",
+                                    **sargs)
+            check_same_sharded(shl, shc, f"{v} fat build_sharded")
+            for name, fn in (("split_shard", lambda x: shd.split_shard(x, 0)),
+                             ("merge_shards",
+                              lambda x: shd.merge_shards(x, 2, seed=1)),
+                             ("repack", lambda x: shd.repack(x, 5, seed=2))):
+                check_same_sharded(fn(shl), fn(shc), f"{v} fat {name}")
+            shl, shc = shd.split_shard(shl, 0), shd.split_shard(shc, 0)
+            dense, clus = sharded_names(foresight)
+            tables = (*shard_tables(shl), shl.shards.fat_keys)
+            q, = on(DEVICE, np.concatenate([
+                rng.choice(keys_sh, 2048),
+                rng.integers(0, 1 << 22, 2048)]).astype(np.int32))
+            sid = shd.route(shl.boundaries, q)
+            plan = ops.cluster_queries(shl.boundaries, ops._pad(q)[0])
+            for max_steps in (0, 9):
+                check_fat_kernel(dense, tables, (sid, q), report, v,
+                                 max_steps)
+                check_fat_kernel(clus, tables, (plan.block_sids, plan.ndist,
+                                                plan.sid_sorted,
+                                                plan.q_sorted),
+                                 report, v, max_steps)
+            q, = on(DEVICE, straddle_stream(shl.boundaries))
+            plan = ops.cluster_queries(shl.boundaries, ops._pad(q)[0])
+            check(ops.plan_degeneration_split(plan.ndist, 9) is not None,
+                  f"{v} fat straddle stream takes K7's split")
+            w_d, w_c = (KERNELS[n][0] for n in (dense, clus))
+            before = w_d.fat_launches, w_c.fat_launches
+            got = ops.search_kernel_sharded(shl, q)
+            check((w_d.fat_launches, w_c.fat_launches) ==
+                  (before[0] + 1, before[1] + 1), f"{v} fat K7 launched both")
+            want = ops.search_kernel_sharded(shc, q.cpu())
+            check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+                  f"{v} fat search_kernel_sharded (K7), card equals CPU")
+            f, vals = shd.search_sharded(shl, q)
+            check(torch.equal(f, got.found) and torch.equal(vals, got.vals),
+                  f"{v} fat search_sharded equals the kernels")
+            b = shc.boundaries.numpy()
+            for lo, hi, m in ((0, 1 << 22, 200), (int(b[2]) - 5000,
+                                                  int(b[5]) + 7, 100)):
+                check(all(torch.equal(a.cpu(), c) for a, c in zip(
+                    shd.range_scan_sharded(shl, lo, hi, m),
+                    shd.range_scan_sharded(shc, lo, hi, m))),
+                      f"{v} fat range_scan_sharded, card equals CPU")
+
+        # tests/test_rebalance.py:220's Zipf inserts on 48 keys, fat shards
+        krng, zrng = np.random.default_rng(SEED), np.random.default_rng(7)
+        k48 = np.sort(krng.choice(1 << 16, 48, replace=False)
+                      ).astype(np.int32)
+        st = {dev: shd.build_sharded(k48, k48 * 3, n_shards=4, levels=8,
+                                     seed=SEED, node_width=width, device=dev)
+              for dev in (DEVICE, "cpu")}
+        for b in range(4):
+            kk = (int(k48[2]) + (zrng.zipf(ZIPF_A, 32) - 1) % 4096
+                  ).astype(np.int32)
+            ins = np.full(32, sl.OP_INSERT, np.int32)
+            res = {}
+            for dev in st:
+                st[dev], res[dev] = shd.apply_ops_sharded(
+                    st[dev], *on(dev, ins, kk, kk * 2), rebalance=True,
+                    seed=b)
+            check(torch.equal(res[DEVICE].cpu(), res["cpu"]),
+                  f"fat{width} rebalancing apply_ops_sharded results")
+            check_same_sharded(st[DEVICE], st["cpu"],
+                               f"fat{width} rebalancing apply_ops_sharded")
+        report[f"fat{width}_shards_after_zipf"] = st[DEVICE].n_shards
+
+    # K9's scalar tail: a width that is not a multiple of 4
+    args = dict(capacity=sl.node_slots_for(2 * SMALL["n"], 6) + 4,
+                levels=14, node_width=6, seed=SEED)
+    st = sl.build(keys, keys + 1, device=DEVICE, **args)
+    check_same_state(st, sl.build(keys, keys + 1, device="cpu", **args),
+                     "fat6 build, card equals CPU")
+    q, = on(DEVICE, np.concatenate([rng.choice(keys, 2048), rng.integers(
+        0, 1 << 22, 2048)]).astype(np.int32))
+    for max_steps in (0, 9):
+        check_fat_kernel("foresight_traverse", fat_tables(st), (q,), report,
+                         "foresight6", max_steps)
+    report["seconds"] = time.perf_counter() - t0
+    emit(report)
+
+
+def fat_capacity(n: int, width: int) -> int:
+    """benchmarks/common.py:37-38: the node slots of ``n`` keys at build
+    fill, doubled, + 4, to the next power of two."""
+    return 1 << (2 * sl.node_slots_for(n, width) + 4 - 1).bit_length()
+
+
+def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
+                  foresight: bool, stream: tuple) -> dict:
+    """The paper's keys in runs of ``width``: build, the main path through
+    ``search_kernel`` (K1/K2 + K9) and, with ``stream``, one update batch
+    through ``apply_ops``; checks, times, the byte bound and, on the
+    foresight B = 128 list, K9 alone.  Returns the report; its ``row`` is
+    the kernels-line row and ``k9`` K9's own."""
+    stage_s, t_stage = {}, time.perf_counter()
+    t_phase = t_stage
+
+    def lap(stage: str) -> None:
+        nonlocal t_stage
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage_s[stage] = now - t_stage
+        t_stage = now
+
+    dev = torch.device(DEVICE)
+    v = variant(foresight)
+    name = f"{v}_traverse"
+    keys = torch.from_numpy(keys_np).to(dev)
+    q = torch.from_numpy(q_np).to(dev)
+    cap = fat_capacity(FULL_N, width)
+    torch.cuda.reset_peak_memory_stats()
+
+    # The main path, with every launch counter at 0 just before it.
+    reset_launches()
+    t0 = time.perf_counter()
+    st = sl.build(keys, keys + 1, capacity=cap, levels=FULL_LEVELS,
+                  foresight=foresight, seed=SEED, node_width=width,
+                  device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = ops.search_kernel(st, q)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    report = {"phase": "fat_full_size", "variant": v, "node_width": width,
+              "n": FULL_N, "levels": FULL_LEVELS, "capacity": cap,
+              "nodes": int(st.bump) - 2, "batch": q.numel(),
+              "fused_gib": (st.fused if foresight else st.nxt).numel() * 4
+              / 2**30, "runs_gib": 2 * st.fat_keys.numel() * 4 / 2**30,
+              "build_s": build_s, "search_kernel_s": search_s}
+    if stream is not None:
+        (types, ks, vs), want_results, current = stream
+        saved = [t.clone() for t in st if t is not None]
+        t0 = time.perf_counter()
+        new, results = sl.apply_ops(st, *on(dev, types, ks, vs))
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+        after = ops.search_kernel(new, q)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    lap("main_path")
+    check(launches[f"{name}/fat"] >= 1 and launches["fat_resolve"] >= 1,
+          f"main path launched {name} with K9 (width {width})")
+
+    check_lookups(res.found, res.vals, q_np, keys_np,
+                  f"fat{width} search_kernel")
+    flat_vals = st.fat_vals.reshape(-1)
+    check(torch.equal(flat_vals[res.node[res.found].long()],
+                      res.vals[res.found]),
+          f"fat{width} node ids dereference into fat_vals")
+    if stream is not None:
+        check(np.array_equal(results.cpu().numpy(), want_results),
+              f"fat{width} every apply_ops result equals the oracle")
+        check(bool(sl.check_fat_invariant(new)),
+              f"fat{width} check_fat_invariant after the update")
+        check(all(torch.equal(a, b) for a, b in
+                  zip([t for t in st if t is not None], saved)),
+              f"fat{width} apply_ops leaves its input unchanged")
+        check_lookups(after.found, after.vals, q_np, current,
+                      f"fat{width} search_kernel after the update")
+        report.update(update_ops=len(types), update_s=update_s,
+                      update_us_per_op=update_s / len(types) * 1e6,
+                      n_after=int(new.n))
+        del new, after, saved
+    lap("oracle_checks")
+
+    wrapper, plain, source, replaces = KERNELS[name]
+    tables = fat_tables(st)
+    walk, fat = tables[:-1], tables[-1]
+    err = max_abs_err(wrapper(*walk, q, fat), plain(*walk, q, fat))
+    check(err == 0, f"{name} + K9 equals its plain version (width {width})")
+    fp = path_footprint(tuple(t[None] for t in walk), q,
+                        fat_keys=fat[None])
+    lap("footprint_replay")
+    kernel_ms = time_ms(lambda: wrapper(*walk, q, fat), KERNEL_REPS)
+    plain_ms = time_ms(lambda: plain(*walk, q, fat), PLAIN_REPS)
+    library_ms = time_ms(lambda: torch.searchsorted(keys, q), KERNEL_REPS)
+    lap("timing")
+    io_bytes = q.numel() * 4 * 3             # queries in, node + key out
+    bytes_ms = (fp["distinct_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = (fp["steps"] + fp["compares"]) / SCALAR_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    report["row"] = {
+        "name": fat_row_name(name, width), "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches[f"{name}/fat"],
+        "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms}
+    report.update(
+        hits=int(res.found.sum()), mops=q.numel() / kernel_ms / 1e3,
+        ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_share=bound_ms / kernel_ms,
+        mean_path_steps=fp["steps"] / q.numel(),
+        max_path_steps=int(fp["path"].max()),
+        distinct_bytes=fp["distinct_bytes"],
+        distinct_runs=fp["distinct_runs"], sector_bytes=fp["sector_bytes"],
+        sector_bound_ms=(fp["sector_bytes"] + io_bytes)
+        / HBM_BYTES_PER_S * 1e3)
+
+    if foresight and width == 128:
+        # K9 alone on the batch's final predecessors: what the postlude
+        # costs beside the walk.
+        x = fp["x"]
+        got = ft.fat_resolve(st.fused, fat, x, q)
+        err9 = max_abs_err(got, ft.fat_resolve_plain(st.fused, fat, x, q))
+        check(err9 == 0, "K9 alone equals its plain version")
+        check(all(torch.equal(a, b) for a, b in
+                  zip(got, wrapper(*walk, q, fat))),
+              "K9 alone equals the postlude of K1")
+        cand, ck = st.fused[0, x.long()].unbind(1)
+        owner = torch.where((ck == q) | (x == 0), cand, x).long()
+        rows = fat[owner]                        # [batch, B] owner runs
+        k9_ms = time_ms(lambda: ft.fat_resolve(st.fused, fat, x, q),
+                        KERNEL_REPS)
+        k9_plain_ms = time_ms(
+            lambda: ft.fat_resolve_plain(st.fused, fat, x, q), PLAIN_REPS)
+        k9_library_ms = time_ms(lambda: torch.searchsorted(rows, q[:, None]),
+                                KERNEL_REPS)
+        del rows
+        # x's level-0 records and the distinct owner runs; x and q in,
+        # node and key out
+        k9_bytes = (int(torch.unique(x).numel()) * 8
+                    + fp["distinct_runs"] * width * 4 + q.numel() * 16)
+        k9_bytes_ms = k9_bytes / HBM_BYTES_PER_S * 1e3
+        k9_ops_ms = fp["compares"] / SCALAR_OPS_PER_S * 1e3
+        report["k9"] = {
+            "name": "fat_resolve", "route": "cuda", "source": TRAVERSE_CU,
+            "replaces": f"{FT_PY}:223", "launches": None,
+            "max_abs_err": err9, "ms": k9_ms, "plain_ms": k9_plain_ms,
+            "bound_ms": max(k9_bytes_ms, k9_ops_ms),
+            "bound_by": "bytes" if k9_bytes_ms >= k9_ops_ms
+            else "operations", "library_ms": k9_library_ms}
+        report["k9_share_of_k1_fat"] = k9_ms / kernel_ms
+        lap("k9_alone")
+    report.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  stage_s=stage_s, seconds=time.perf_counter() - t_phase)
+    emit({k: v for k, v in report.items() if k not in ("row", "k9")})
+    del st, res, tables, walk, fat, flat_vals, keys, fp
+    torch.cuda.empty_cache()
+    return report
 
 
 def zipf_queries(keys: np.ndarray, batch: int, a: float = ZIPF_A,
@@ -983,10 +1426,11 @@ def main() -> None:
     t0 = time.perf_counter()
     stream = (ops_, *host_oracle(keys_np, *ops_[:2]))
     emit({"phase": "sharded_host_oracle", "seconds": time.perf_counter() - t0})
-    answers = {}
+    answers, scalar_answers = {}, {}
     for foresight in (True, False):
         sharded_rows, answers = sharded_full_size(keys_np, traffic, stream,
                                                   foresight, answers)
+        scalar_answers = scalar_answers or answers
         rows += sharded_rows
     by_name = {r["name"]: r for r in rows}
     emit({"phase": "sharded_ratio",
@@ -1000,6 +1444,35 @@ def main() -> None:
               for v in ("foresight", "base")}})
     for name in KERNELS:
         check(by_name[name]["launches"] > 0, f"{name} launched on its path")
+
+    small_fat_check()
+    fat = {(w, fs): fat_full_size(keys_np, q_np, w, fs,
+                                  stream if (w, fs) == (128, True) else None)
+           for w, fs in ((128, True), (128, False), (8, True))}
+    fat_rows = [r["row"] for r in fat.values()]
+    answers = {}
+    for foresight in (True, False):
+        sharded_rows, answers = sharded_full_size(
+            keys_np, traffic, stream, foresight, answers, width=128,
+            scalar=scalar_answers)
+        fat_rows += sharded_rows
+    k9 = fat[(128, True)]["k9"]
+    k9["launches"] = sum(r["launches"] for r in fat_rows)
+    check(k9["launches"] > 0, "fat_resolve (K9) launched on the fat paths")
+    emit({"phase": "fat_ratio",
+          "foresight_over_base_ms": fat[(128, True)]["ms"]
+          / fat[(128, False)]["ms"],
+          "fat128_over_scalar_k1_ms": fat[(128, True)]["ms"]
+          / by_name["foresight_traverse"]["ms"],
+          "fat8_over_scalar_k1_ms": fat[(8, True)]["ms"]
+          / by_name["foresight_traverse"]["ms"],
+          "k9_alone_over_k1_fat128_ms": fat[(128, True)]["k9_share_of_k1_fat"],
+          "fat_over_scalar_ms": {
+              r["name"]: r["ms"] / by_name[r["name"].split("/")[0]]["ms"]
+              for r in fat_rows}})
+    for r in fat_rows:
+        check(r["launches"] > 0, f"{r['name']} launched on its path")
+    rows += fat_rows + [k9]
     emit({"kernels": rows})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,8 @@ packages' ``SkipListState``, so a test can build a state with one package,
 move it across bit for bit (the ``rng`` key included) and search it with
 the other.  ``sharded_to_numpy`` / ``sharded_from_numpy`` do the same for
 a ``ShardedSkipList``, under the keys ``shards.<field>`` and
-``boundaries``.
+``boundaries``.  Fat-layout states carry ``fat_keys``, ``fat_vals`` and
+``nlen`` as well.
 """
 from __future__ import annotations
 
@@ -17,14 +18,8 @@ import torch
 from repro_torch.core.sharded import ShardedSkipList
 from repro_torch.core.skiplist import SkipListState, resolve_device
 
-_FAT_FIELDS = ("fat_keys", "fat_vals", "nlen")
-
-
 def _state(arrays: Dict[str, np.ndarray], dev: torch.device
            ) -> SkipListState:
-    if any(arrays.get(f) is not None for f in _FAT_FIELDS):
-        raise NotImplementedError("fat-layout states are not ported yet "
-                                  "(ROADMAP.md Queue 1, fat-node layout)")
     fields = {}
     for name in SkipListState._fields:
         a = arrays.get(name)

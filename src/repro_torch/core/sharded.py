@@ -11,7 +11,9 @@ Everything here is bit-identical to the reference on the same inputs and
 seed: the stacked arrays (``rng`` included), the boundaries, every search
 and update result and the shard count after a rebalance.
 
-Scalar layout only (``node_width == 1``); the fat layout raises.
+Both layouts: under the fat layout (``node_width`` > 1) every shard is a
+fat list (``fat_keys [S, cap, B]`` ...), ``shard_capacity`` counts node
+slots, and lookups and scans resolve within the owning run.
 
 What differs from the reference, and why the results do not:
 
@@ -32,11 +34,12 @@ What differs from the reference, and why the results do not:
   not ported: ``rebalance`` and ``apply_ops_sharded(rebalance=True)``
   raise ``NotImplementedError`` there rather than take the host path.
 * The eager searches (``search_sharded``, ``range_scan_sharded``) index
-  the flattened stack as ``(sid * L + lvl) * cap + x``, which the
-  reference computes in int32.  Past ``S * L * cap = 2**31 - 1`` that
-  wraps and there is no reference answer, so the port refuses such a
-  stack with ``ValueError`` (``kernels.ops.search_kernel_sharded``
-  indexes per shard and takes it).
+  the flattened stack as ``(sid * L + lvl) * cap + x``, and under the fat
+  layout its runs as ``(sid * cap + node) * B + lane``, which the
+  reference computes in int32.  Past ``S * L * cap`` or ``S * cap * B =
+  2**31 - 1`` that wraps and there is no reference answer, so the port
+  refuses such a stack with ``ValueError``
+  (``kernels.ops.search_kernel_sharded`` indexes per shard and takes it).
 """
 from __future__ import annotations
 
@@ -48,11 +51,12 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.skiplist import (HEAD, KEY_MAX, KEY_MIN, NULL_VAL,
                                        OP_INSERT, TAIL, SkipListState,
-                                       _FAT_TODO, _clone, _to_i32, allocate,
+                                       _clone, _to_i32, allocate,
                                        apply_ops_inplace, build, build_into,
                                        check_foresight_invariant,
-                                       fill_empty, host_ops, node_slots_for,
-                                       resolve_device, search,
+                                       fat_scan_step, fill_empty, host_ops,
+                                       node_slots_for, resolve_device,
+                                       run_position, scan_result, search,
                                        sorted_live_kv, usable_capacity)
 
 MAX_INDEX = 2**31 - 1
@@ -87,6 +91,10 @@ class ShardedSkipList(NamedTuple):
         return self.shards.fused is not None
 
     @property
+    def node_width(self) -> int:
+        return self.shards.node_width
+
+    @property
     def device(self) -> torch.device:
         return self.boundaries.device
 
@@ -110,10 +118,11 @@ def route(boundaries: torch.Tensor, queries) -> torch.Tensor:
 
 def shard_capacity_for(n: int, n_shards: int, node_width: int = 1) -> int:
     """Per-shard capacity for ``n`` total keys: ``m = ceil(n / S)`` keys a
-    shard, 2x headroom, the next power of two, at least 8."""
-    if node_width > 1:
-        raise NotImplementedError(_FAT_TODO)
+    shard (under the fat layout the node slots they pack into), 2x
+    headroom, the next power of two, at least 8."""
     m = max(1, -(-n // n_shards))
+    if node_width > 1:
+        m = node_slots_for(m, node_width)
     return max(8, 1 << (2 * m + 4 - 1).bit_length())
 
 
@@ -139,19 +148,18 @@ def build_sharded(keys, vals, *, n_shards: int, capacity: int = 0,
     keys ``[s*m, (s+1)*m)``, padded with ``KEY_MAX`` and an invalid
     suffix.  ``valid`` (optional prefix mask) marks the real entries.  The
     shards are built one by one into preallocated stacked tensors on
-    ``device`` (``None``: the GPU).
+    ``device`` (``None``: the GPU); ``node_width`` > 1 builds fat shards.
     """
-    if node_width > 1:
-        raise NotImplementedError(_FAT_TODO)
     dev = resolve_device(device)
     keys = torch.as_tensor(keys, device=dev).to(torch.int32)
     vals = torch.as_tensor(vals, device=dev).to(torch.int32)
     n, S = keys.shape[0], n_shards
-    capacity = capacity or shard_capacity_for(n, S)
+    capacity = capacity or shard_capacity_for(n, S, node_width)
     m = max(1, -(-n // S))
-    if m + 2 > capacity:
-        raise ValueError(f"shard capacity {capacity} must exceed "
-                         f"keys-per-shard + 2 = {m + 2}")
+    slots = node_slots_for(m, node_width)
+    if slots + 2 > capacity:
+        raise ValueError(f"shard capacity {capacity} must exceed the "
+                         f"{slots} node slots of a shard's keys + 2")
     valid = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None
              else torch.as_tensor(valid, device=dev).to(torch.bool))
     keys = torch.where(valid, keys, KEY_MAX)
@@ -161,7 +169,7 @@ def build_sharded(keys, vals, *, n_shards: int, capacity: int = 0,
         vals = torch.cat([vals, vals.new_full((pad,), NULL_VAL)])
         valid = torch.cat([valid, valid.new_zeros(pad)])
     stacked = allocate((S,), capacity, levels, foresight=foresight,
-                       device=dev)
+                       node_width=node_width, device=dev)
     fill_empty(stacked, levels)
     for s in range(S):
         shard = shard_view(stacked, s)
@@ -191,13 +199,21 @@ def total_n(shl: ShardedSkipList) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def check_stack_index(shl: ShardedSkipList) -> None:
-    """Raise where the reference's int32 flat stack index would wrap."""
-    S, L, cap = shl.n_shards, shl.levels, shl.shard_capacity
+    """Raise where the reference's int32 flat stack index would wrap: the
+    record index, and under the fat layout the element index."""
+    S, L, cap, B = (shl.n_shards, shl.levels, shl.shard_capacity,
+                    shl.node_width)
     if S * L * cap > MAX_INDEX:
         raise ValueError(
             f"S * levels * capacity = {S * L * cap} exceeds 2**31 - 1: the "
             "reference's int32 stack index (sid * L + lvl) * cap + x would "
             "wrap (kernels.ops.search_kernel_sharded indexes per shard)")
+    if S * cap * B > MAX_INDEX:
+        raise ValueError(
+            f"S * capacity * node_width = {S * cap * B} exceeds 2**31 - 1: "
+            "the reference's int32 run index (sid * cap + node) * B + lane "
+            "would wrap (kernels.ops.search_kernel_sharded indexes per "
+            "shard)")
 
 
 def _effective_tops(shl: ShardedSkipList) -> torch.Tensor:
@@ -250,8 +266,17 @@ def search_sharded(shl: ShardedSkipList, queries
         x = torch.where(go, ptr, x)
         lvl = torch.where(go | ~active, lvl, lvl - 1)
     cand, ck = gather(torch.zeros_like(q), x)
-    found = ck == q
     cap = shl.shard_capacity
+    if shl.node_width > 1:
+        # the owning run, as in core.skiplist._fat_resolve_batch
+        nw = shl.node_width
+        owner = torch.where((ck == q) | (x == HEAD), cand, x)
+        rows = sid.long() * cap + owner.long()
+        _, pos_c, found = run_position(
+            shl.shards.fat_keys.reshape(-1, nw), rows, q)
+        vals = shl.shards.fat_vals.reshape(-1)[rows * nw + pos_c]
+        return found, torch.where(found, vals, NULL_VAL)
+    found = ck == q
     vals = shl.shards.vals.reshape(-1)[sid.long() * cap + cand.long()]
     return found, torch.where(found, vals, NULL_VAL)
 
@@ -268,7 +293,8 @@ def range_scan_sharded(shl: ShardedSkipList, lo, hi, max_out: int
     search, then walks level 0; a shard's tail spills into the next
     shard's head.  Returns (keys [max_out], vals [max_out], count []);
     unused slots hold KEY_MAX / NULL_VAL.  The walk stops where the
-    reference's fixed ``max_out + S`` iterations stop changing anything.
+    reference's fixed ``max_out + S`` iterations stop changing anything;
+    the fat layout walks a (shard, node, lane) cursor instead.
     """
     check_stack_index(shl)
     lo, hi = _to_i32(lo), _to_i32(hi)
@@ -277,6 +303,8 @@ def range_scan_sharded(shl: ShardedSkipList, lo, hi, max_out: int
     shard = shard_view(shl.shards, sid)
     x = int(search(shard, torch.tensor([lo], dtype=torch.int32,
                                        device=dev)).preds[0, 0])
+    if shl.node_width > 1:
+        return _fat_range_scan_sharded(shl, lo, hi, max_out, sid, x)
     keys_out: List[int] = []
     vals_out: List[int] = []
     for _ in range(max_out + S):
@@ -293,12 +321,46 @@ def range_scan_sharded(shl: ShardedSkipList, lo, hi, max_out: int
             sid, x = sid + 1, HEAD
         else:
             break
-    count = len(keys_out)
-    pad = max_out - count
-    i32 = dict(dtype=torch.int32, device=dev)
-    return (torch.tensor(keys_out + [KEY_MAX] * pad, **i32),
-            torch.tensor(vals_out + [NULL_VAL] * pad, **i32),
-            torch.tensor(count, **i32))
+    return scan_result(keys_out, vals_out, max_out, dev)
+
+
+def _fat_range_scan_sharded(shl: ShardedSkipList, lo: int, hi: int,
+                            max_out: int, sid: int, node: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The cross-shard scan over fat runs: a (shard, node, lane) cursor
+    from node ``node`` of shard ``sid``.  At a run's end it hops to the
+    level-0 successor, or, where that is the tail, spills into the next
+    shard's head; it stops at the last shard's tail, a key at or past
+    ``hi`` or ``max_out`` pairs, and like the reference after at most
+    ``2 * max_out + node_width + 2 * S + 4`` steps."""
+    S, nw, sh = shl.n_shards, shl.node_width, shl.shards
+
+    def row(sid, node):
+        if shl.foresight:
+            ptr, pk = sh.fused[sid, 0, node].tolist()
+        else:
+            ptr = int(sh.nxt[sid, 0, node])
+            pk = int(sh.keys[sid, ptr])
+        return ((sh.fat_keys[sid, node].tolist(),
+                 sh.fat_vals[sid, node].tolist()), ptr, pk)
+
+    lane, taken = 0, []
+    run, ptr, pk = row(sid, node)
+    for _ in range(2 * max_out + nw + 2 * S + 4):
+        at_end, stop = fat_scan_step(run, lane, nw, lo, hi, taken, max_out)
+        succ_tail = pk == KEY_MAX              # level-0 successor is the tail
+        if (at_end and succ_tail and sid >= S - 1) or stop or \
+                len(taken) >= max_out:
+            break
+        if at_end:
+            sid, node = (sid + 1, HEAD) if succ_tail else (sid, ptr)
+            lane = 0
+            run, ptr, pk = row(sid, node)
+        else:
+            lane += 1
+    return scan_result([k for k, _ in taken], [v for _, v in taken],
+                       max_out, shl.device)
 
 
 # ---------------------------------------------------------------------------
@@ -351,8 +413,8 @@ def split_shard(shl: ShardedSkipList, s: int, at_key: Optional[int] = None,
     s, S = int(s), shl.n_shards
     if not 0 <= s < S:
         raise ValueError(f"shard {s} out of range for {S} shards")
-    cap, L, fs, dev = (shl.shard_capacity, shl.levels, shl.foresight,
-                       shl.device)
+    cap, L, fs, nw, dev = (shl.shard_capacity, shl.levels, shl.foresight,
+                           shl.node_width, shl.device)
     shard = shard_view(shl.shards, s)
     ks, vs = _shard_sorted_kv(shard)
     n = int(shard.n)
@@ -369,12 +431,14 @@ def split_shard(shl: ShardedSkipList, s: int, at_key: Optional[int] = None,
         raise ValueError(f"at_key={at_key} outside shard {s}'s open range "
                          f"({int(b_np[s])}, {hi})")
     n_left = int((ks_np[:n] < at_key).sum())
-    W = usable_capacity(cap)
+    # rebuilds pack at build fill, so each half must fit the fill mass
+    W = usable_capacity(cap, nw)
     if n_left > W or n - n_left > W:
         raise ValueError(f"split halves {n_left}/{n - n_left} exceed the "
-                         f"build-fill capacity {W} (node_width=1)")
+                         f"build-fill capacity {W} (node_width={nw})")
     idx = torch.arange(W, device=dev)
-    args = dict(capacity=cap, levels=L, foresight=fs, device=dev)
+    args = dict(capacity=cap, levels=L, foresight=fs, node_width=nw,
+                device=dev)
     left = build(ks[:W], vs[:W], seed=seed, valid=idx < n_left, **args)
     right = build(torch.roll(ks, -n_left)[:W], torch.roll(vs, -n_left)[:W],
                   seed=seed + 1, valid=idx < n - n_left, **args)
@@ -389,22 +453,22 @@ def merge_shards(shl: ShardedSkipList, s: int, *, seed: int = 0
     s, S = int(s), shl.n_shards
     if not 0 <= s < S - 1:
         raise ValueError("merge needs a right-hand neighbour")
-    cap, L, fs, dev = (shl.shard_capacity, shl.levels, shl.foresight,
-                       shl.device)
+    cap, L, fs, nw, dev = (shl.shard_capacity, shl.levels, shl.foresight,
+                           shl.node_width, shl.device)
     a, b = shard_view(shl.shards, s), shard_view(shl.shards, s + 1)
     ka, va = _shard_sorted_kv(a)
     kb, vb = _shard_sorted_kv(b)
     na, nb = int(a.n), int(b.n)
-    if node_slots_for(na + nb, 1) + 2 > cap:
+    if node_slots_for(na + nb, nw) + 2 > cap:
         raise ValueError(f"merged occupancy {na}+{nb} exceeds shard "
-                         f"capacity {cap} (node_width=1)")
-    width = usable_capacity(cap)
+                         f"capacity {cap} (node_width={nw})")
+    width = usable_capacity(cap, nw)         # the rebuild packs at fill
     pad = width - na - nb
     ks = torch.cat([ka[:na], kb[:nb], ka.new_full((pad,), KEY_MAX)])
     vs = torch.cat([va[:na], vb[:nb], va.new_full((pad,), NULL_VAL)])
     merged = build(ks, vs, capacity=cap, levels=L, foresight=fs, seed=seed,
                    valid=torch.arange(width, device=dev) < na + nb,
-                   device=dev)
+                   node_width=nw, device=dev)
     return _set_shard_slice(shl, s, 2, _stack(merged),
                             _boundaries_with(shl, s, 1, []))
 
@@ -415,20 +479,27 @@ def repack(shl: ShardedSkipList, n_shards: int = 0, *, seed: int = 0
     current count) at the same per-shard capacity, in one pass."""
     S = shl.n_shards
     S2 = int(n_shards) or S
-    cap = shl.shard_capacity
+    cap, nw = shl.shard_capacity, shl.node_width
     nn = int(total_n(shl))
-    if node_slots_for(-(-max(1, nn) // S2), 1) + 2 > cap:
+    if node_slots_for(-(-max(1, nn) // S2), nw) + 2 > cap:
         raise ValueError(f"{nn} keys over {S2} shards exceed per-shard "
-                         f"capacity {cap} (node_width=1)")
-    # The S head sentinels (KEY_MIN) sort first and dead slots (KEY_MAX)
-    # last, so the live keys are positions S .. S + nn.
-    flat_k = shl.shards.keys.reshape(-1)
+                         f"capacity {cap} (node_width={nw})")
+    if nw > 1:
+        # Fat lanes sort directly: the sentinel rows are all KEY_MAX (no
+        # KEY_MIN lane), so the live elements lead the order.
+        flat_k, flat_v, first = (shl.shards.fat_keys.reshape(-1),
+                                 shl.shards.fat_vals.reshape(-1), 0)
+    else:
+        # The S head sentinels (KEY_MIN) sort first and dead slots
+        # (KEY_MAX) last, so the live keys are positions S .. S + nn.
+        flat_k, flat_v, first = (shl.shards.keys.reshape(-1),
+                                 shl.shards.vals.reshape(-1), S)
     order = torch.argsort(flat_k, stable=True)
-    ks = flat_k[order][S:S + nn]
-    vs = shl.shards.vals.reshape(-1)[order][S:S + nn]
+    ks = flat_k[order][first:first + nn]
+    vs = flat_v[order][first:first + nn]
     return build_sharded(ks, vs, n_shards=S2, capacity=cap,
                          levels=shl.levels, foresight=shl.foresight,
-                         seed=seed, device=shl.device)
+                         seed=seed, node_width=nw, device=shl.device)
 
 
 def validate_watermarks(high_water: float, low_water: float) -> None:
@@ -452,7 +523,7 @@ def _watermark_rebalance(shl: ShardedSkipList, *, high_water: float,
     the adjacent pair of least combined occupancy that fits under it and
     has a shard below ``low_water``, until neither applies."""
     validate_watermarks(high_water, low_water)
-    usable = usable_capacity(shl.shard_capacity)
+    usable = usable_capacity(shl.shard_capacity, shl.node_width)
     splits = merges = 0
     while shl.n_shards < max_shards:
         ns = shl.shards.n.cpu().numpy()
@@ -504,7 +575,7 @@ def _exhaustion_guard(shl: ShardedSkipList, op_types: torch.Tensor,
     incoming keys until every projection fits or the keys are indivisible.
     Contents never change, so the following apply is unaffected.
     """
-    usable = usable_capacity(shl.shard_capacity)
+    usable = usable_capacity(shl.shard_capacity, shl.node_width)
     ins = op_types.cpu().numpy() == OP_INSERT
     if not ins.any():
         return shl, 0

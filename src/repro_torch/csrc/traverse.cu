@@ -10,6 +10,8 @@
 //                                 (_foresight_clustered_kernel), K5
 //   base_clustered_launch      -> base_traverse_clustered
 //                                 (_base_clustered_kernel), K6
+//   fat_resolve (device function, in all six when fat_keys is given; alone
+//   through fat_resolve_launch) -> _fat_resolve, the fat-node postlude, K9
 // All run the lock-step loop of _traverse_loop: start at the head on level
 // L-1; each step either advances to the successor (its key < q) or descends;
 // stop when below level 0 or after max_steps steps; return the level-0
@@ -45,21 +47,37 @@
 // Record and byte offsets are computed in 64 bits: at 27 levels x 2^26 slots
 // the record index reaches 1.8e9 and the byte offset 14.5e9, and a stack of
 // 64 shards x 21 levels x 2^21 slots holds 2.8e9 records (22.5 GB).
+//
+// K9, the fat-node postlude (node_width B > 1: each node holds a sorted run
+// of up to B keys in fat_keys [cap, B], padded with KEY_MAX; the walk is over
+// the run minima).  From the final predecessor x and its level-0 record
+// (cand, ck): owner = (ck == q || x == head) ? cand : x; pos = the number of
+// the owner's B lanes below q; the result is (owner * B + min(pos, B-1), the
+// key there, or KEY_MAX when pos == B).  It is an exact count over every
+// lane, as the reference computes it, not a binary search: that holds on
+// any row.  One thread reads its owner's row, as int4 loads while the row
+// is 16-byte aligned and then a scalar tail (B = 6 takes the tail).  What
+// bounds it: one more dependent miss (the row, 512 B at B = 128, four 128-B
+// lines) after the walk's; a warp-cooperative compare (one coalesced row a
+// step, __ballot_sync / __popc) is later work.  Element ids are int32, as
+// in the reference: the wrappers refuse cap * B above 2^31 - 1.
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
 constexpr int kBlock = 256;
 constexpr int kQblk = 128;   // lanes per block of a clustered plan (QBLK)
+constexpr int kKeyMax = 0x7fffffff;
 
 // K1's walk over one table fused [levels, cap, 2]: the level-0 record of the
-// final predecessor.
+// final predecessor, which is left in x.
 __device__ __forceinline__ int2 foresight_walk(const int2* __restrict__ fused,
                                                int q, int levels,
                                                long long cap,
-                                               long long max_steps) {
-  int x = 0;                 // head sentinel
+                                               long long max_steps, int& x) {
+  x = 0;                     // head sentinel
   int lvl = levels - 1;
   for (long long step = 0; step < max_steps && lvl >= 0; ++step) {
     const int2 rec = __ldg(fused + (size_t)lvl * (size_t)cap + (size_t)x);
@@ -68,12 +86,13 @@ __device__ __forceinline__ int2 foresight_walk(const int2* __restrict__ fused,
   return __ldg(fused + (size_t)x);                 // level 0
 }
 
-// K2's walk over nxt [levels, cap] and keys [cap]: (successor, its key).
+// K2's walk over nxt [levels, cap] and keys [cap]: (successor, its key) of
+// the final predecessor, which is left in x.
 __device__ __forceinline__ int2 base_walk(const int* __restrict__ nxt,
                                           const int* __restrict__ keys, int q,
                                           int levels, long long cap,
-                                          long long max_steps) {
-  int x = 0;
+                                          long long max_steps, int& x) {
+  x = 0;
   int lvl = levels - 1;
   for (long long step = 0; step < max_steps && lvl >= 0; ++step) {
     const int ptr = __ldg(nxt + (size_t)lvl * (size_t)cap + (size_t)x);
@@ -82,6 +101,28 @@ __device__ __forceinline__ int2 base_walk(const int* __restrict__ nxt,
   }
   const int ptr = __ldg(nxt + (size_t)x);
   return make_int2(ptr, __ldg(keys + (size_t)ptr));
+}
+
+// K9 on one table fat [cap, width]: (element-flat node, key) of query q whose
+// walk ended at x with level-0 record cand.
+__device__ __forceinline__ int2 fat_resolve(const int* __restrict__ fat,
+                                            int width, int q, int x,
+                                            int2 cand) {
+  const int owner = (cand.y == q || x == 0) ? cand.x : x;
+  const int* row = fat + (size_t)owner * (size_t)width;
+  int pos = 0;
+  int j = 0;
+  if ((reinterpret_cast<uintptr_t>(row) & 15) == 0) {
+    const int4* row4 = reinterpret_cast<const int4*>(row);
+    for (; j + 4 <= width; j += 4) {
+      const int4 v = __ldg(row4 + j / 4);
+      pos += (v.x < q) + (v.y < q) + (v.z < q) + (v.w < q);
+    }
+  }
+  for (; j < width; ++j) pos += __ldg(row + j) < q;
+  const int pos_c = min(pos, width - 1);
+  return make_int2(owner * width + pos_c,
+                   pos < width ? __ldg(row + pos_c) : kKeyMax);
 }
 
 // Is lane i, of shard s, served by its clustered block's slots?
@@ -96,26 +137,34 @@ __device__ __forceinline__ bool served_by_plan(const int* __restrict__ bsids,
   return false;
 }
 
+// In every kernel, fat == nullptr is the scalar layout; otherwise K9 runs
+// on the walk's result, in the lane's shard's runs (offset s * cap * width).
 __global__ void __launch_bounds__(kBlock)
-foresight_kernel(const int2* __restrict__ fused, const int* __restrict__ queries,
-                 int* __restrict__ node, int* __restrict__ key,
-                 long long batch, int levels, long long cap,
-                 long long max_steps) {
+foresight_kernel(const int2* __restrict__ fused, const int* __restrict__ fat,
+                 const int* __restrict__ queries, int* __restrict__ node,
+                 int* __restrict__ key, long long batch, int levels,
+                 long long cap, int width, long long max_steps) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= batch) return;
-  const int2 r = foresight_walk(fused, queries[i], levels, cap, max_steps);
+  const int q = queries[i];
+  int x;
+  int2 r = foresight_walk(fused, q, levels, cap, max_steps, x);
+  if (fat != nullptr) r = fat_resolve(fat, width, q, x, r);
   node[i] = r.x;
   key[i] = r.y;
 }
 
 __global__ void __launch_bounds__(kBlock)
 base_kernel(const int* __restrict__ nxt, const int* __restrict__ keys,
-            const int* __restrict__ queries, int* __restrict__ node,
-            int* __restrict__ key, long long batch, int levels, long long cap,
-            long long max_steps) {
+            const int* __restrict__ fat, const int* __restrict__ queries,
+            int* __restrict__ node, int* __restrict__ key, long long batch,
+            int levels, long long cap, int width, long long max_steps) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= batch) return;
-  const int2 r = base_walk(nxt, keys, queries[i], levels, cap, max_steps);
+  const int q = queries[i];
+  int x;
+  int2 r = base_walk(nxt, keys, q, levels, cap, max_steps, x);
+  if (fat != nullptr) r = fat_resolve(fat, width, q, x, r);
   node[i] = r.x;
   key[i] = r.y;
 }
@@ -123,21 +172,28 @@ base_kernel(const int* __restrict__ nxt, const int* __restrict__ keys,
 // K3 and K5: bsids == nullptr is the dense K3, every in-range lane served.
 __global__ void __launch_bounds__(kBlock)
 foresight_sharded_kernel(const int2* __restrict__ fused,
+                         const int* __restrict__ fat,
                          const int* __restrict__ bsids,
                          const int* __restrict__ ndist,
                          const int* __restrict__ sids,
                          const int* __restrict__ queries,
                          int* __restrict__ node, int* __restrict__ key,
                          long long batch, int shards, int k_slots, int levels,
-                         long long cap, long long max_steps) {
+                         long long cap, int width, long long max_steps) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= batch) return;
   const int s = sids[i];
   int2 r = make_int2(0, 0);
   if (s >= 0 && s < shards &&
-      (bsids == nullptr || served_by_plan(bsids, ndist, i, s, k_slots)))
-    r = foresight_walk(fused + (size_t)s * (size_t)levels * (size_t)cap,
-                       queries[i], levels, cap, max_steps);
+      (bsids == nullptr || served_by_plan(bsids, ndist, i, s, k_slots))) {
+    const int q = queries[i];
+    int x;
+    r = foresight_walk(fused + (size_t)s * (size_t)levels * (size_t)cap, q,
+                       levels, cap, max_steps, x);
+    if (fat != nullptr)
+      r = fat_resolve(fat + (size_t)s * (size_t)cap * (size_t)width, width,
+                      q, x, r);
+  }
   node[i] = r.x;
   key[i] = r.y;
 }
@@ -145,22 +201,45 @@ foresight_sharded_kernel(const int2* __restrict__ fused,
 // K4 and K6: bsids == nullptr is the dense K4.
 __global__ void __launch_bounds__(kBlock)
 base_sharded_kernel(const int* __restrict__ nxt, const int* __restrict__ keys,
+                    const int* __restrict__ fat,
                     const int* __restrict__ bsids,
                     const int* __restrict__ ndist,
                     const int* __restrict__ sids,
                     const int* __restrict__ queries, int* __restrict__ node,
                     int* __restrict__ key, long long batch, int shards,
-                    int k_slots, int levels, long long cap,
+                    int k_slots, int levels, long long cap, int width,
                     long long max_steps) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= batch) return;
   const int s = sids[i];
   int2 r = make_int2(0, 0);
   if (s >= 0 && s < shards &&
-      (bsids == nullptr || served_by_plan(bsids, ndist, i, s, k_slots)))
+      (bsids == nullptr || served_by_plan(bsids, ndist, i, s, k_slots))) {
+    const int q = queries[i];
+    int x;
     r = base_walk(nxt + (size_t)s * (size_t)levels * (size_t)cap,
-                  keys + (size_t)s * (size_t)cap, queries[i], levels, cap,
-                  max_steps);
+                  keys + (size_t)s * (size_t)cap, q, levels, cap, max_steps,
+                  x);
+    if (fat != nullptr)
+      r = fat_resolve(fat + (size_t)s * (size_t)cap * (size_t)width, width,
+                      q, x, r);
+  }
+  node[i] = r.x;
+  key[i] = r.y;
+}
+
+// K9 alone, from given final predecessors xs over the level-0 records of a
+// foresight table (fused's first cap records).
+__global__ void __launch_bounds__(kBlock)
+fat_resolve_kernel(const int2* __restrict__ fused, const int* __restrict__ fat,
+                   const int* __restrict__ xs, const int* __restrict__ queries,
+                   int* __restrict__ node, int* __restrict__ key,
+                   long long batch, int width) {
+  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+  if (i >= batch) return;
+  const int x = xs[i];
+  const int2 r = fat_resolve(fat, width, queries[i], x,
+                             __ldg(fused + (size_t)x));
   node[i] = r.x;
   key[i] = r.y;
 }
@@ -174,75 +253,87 @@ unsigned grid_for(long long batch) {
 extern "C" {
 
 // Each launcher enqueues on `stream` and returns cudaGetLastError().
-// `batch` must be positive.
-int foresight_traverse_launch(const void* fused, const void* queries,
-                              void* node, void* key, long long batch,
-                              int levels, long long cap, long long max_steps,
-                              void* stream) {
+// `batch` must be positive.  `fat` is null on the scalar layout (`width` is
+// then 1 and unused).
+int foresight_traverse_launch(const void* fused, const void* fat,
+                              const void* queries, void* node, void* key,
+                              long long batch, int levels, long long cap,
+                              int width, long long max_steps, void* stream) {
   foresight_kernel<<<grid_for(batch), kBlock, 0, (cudaStream_t)stream>>>(
-      (const int2*)fused, (const int*)queries, (int*)node, (int*)key, batch,
-      levels, cap, max_steps);
+      (const int2*)fused, (const int*)fat, (const int*)queries, (int*)node,
+      (int*)key, batch, levels, cap, width, max_steps);
   return (int)cudaGetLastError();
 }
 
-int base_traverse_launch(const void* nxt, const void* keys,
+int base_traverse_launch(const void* nxt, const void* keys, const void* fat,
                          const void* queries, void* node, void* key,
                          long long batch, int levels, long long cap,
-                         long long max_steps, void* stream) {
+                         int width, long long max_steps, void* stream) {
   base_kernel<<<grid_for(batch), kBlock, 0, (cudaStream_t)stream>>>(
-      (const int*)nxt, (const int*)keys, (const int*)queries, (int*)node,
-      (int*)key, batch, levels, cap, max_steps);
+      (const int*)nxt, (const int*)keys, (const int*)fat, (const int*)queries,
+      (int*)node, (int*)key, batch, levels, cap, width, max_steps);
   return (int)cudaGetLastError();
 }
 
-int foresight_sharded_launch(const void* fused, const void* sids,
-                             const void* queries, void* node, void* key,
-                             long long batch, int shards, int levels,
-                             long long cap, long long max_steps,
-                             void* stream) {
+int foresight_sharded_launch(const void* fused, const void* fat,
+                             const void* sids, const void* queries,
+                             void* node, void* key, long long batch,
+                             int shards, int levels, long long cap, int width,
+                             long long max_steps, void* stream) {
   foresight_sharded_kernel<<<grid_for(batch), kBlock, 0,
                              (cudaStream_t)stream>>>(
-      (const int2*)fused, nullptr, nullptr, (const int*)sids,
-      (const int*)queries, (int*)node, (int*)key, batch, shards, 0, levels,
-      cap, max_steps);
+      (const int2*)fused, (const int*)fat, nullptr, nullptr,
+      (const int*)sids, (const int*)queries, (int*)node, (int*)key, batch,
+      shards, 0, levels, cap, width, max_steps);
   return (int)cudaGetLastError();
 }
 
-int base_sharded_launch(const void* nxt, const void* keys, const void* sids,
-                        const void* queries, void* node, void* key,
-                        long long batch, int shards, int levels,
-                        long long cap, long long max_steps, void* stream) {
+int base_sharded_launch(const void* nxt, const void* keys, const void* fat,
+                        const void* sids, const void* queries, void* node,
+                        void* key, long long batch, int shards, int levels,
+                        long long cap, int width, long long max_steps,
+                        void* stream) {
   base_sharded_kernel<<<grid_for(batch), kBlock, 0, (cudaStream_t)stream>>>(
-      (const int*)nxt, (const int*)keys, nullptr, nullptr, (const int*)sids,
-      (const int*)queries, (int*)node, (int*)key, batch, shards, 0, levels,
-      cap, max_steps);
+      (const int*)nxt, (const int*)keys, (const int*)fat, nullptr, nullptr,
+      (const int*)sids, (const int*)queries, (int*)node, (int*)key, batch,
+      shards, 0, levels, cap, width, max_steps);
   return (int)cudaGetLastError();
 }
 
-int foresight_clustered_launch(const void* fused, const void* bsids,
-                               const void* ndist, const void* sids,
-                               const void* queries, void* node, void* key,
-                               long long batch, int shards, int k_slots,
-                               int levels, long long cap, long long max_steps,
+int foresight_clustered_launch(const void* fused, const void* fat,
+                               const void* bsids, const void* ndist,
+                               const void* sids, const void* queries,
+                               void* node, void* key, long long batch,
+                               int shards, int k_slots, int levels,
+                               long long cap, int width, long long max_steps,
                                void* stream) {
   foresight_sharded_kernel<<<grid_for(batch), kBlock, 0,
                              (cudaStream_t)stream>>>(
-      (const int2*)fused, (const int*)bsids, (const int*)ndist,
-      (const int*)sids, (const int*)queries, (int*)node, (int*)key, batch,
-      shards, k_slots, levels, cap, max_steps);
+      (const int2*)fused, (const int*)fat, (const int*)bsids,
+      (const int*)ndist, (const int*)sids, (const int*)queries, (int*)node,
+      (int*)key, batch, shards, k_slots, levels, cap, width, max_steps);
   return (int)cudaGetLastError();
 }
 
-int base_clustered_launch(const void* nxt, const void* keys,
+int base_clustered_launch(const void* nxt, const void* keys, const void* fat,
                           const void* bsids, const void* ndist,
                           const void* sids, const void* queries, void* node,
                           void* key, long long batch, int shards, int k_slots,
-                          int levels, long long cap, long long max_steps,
-                          void* stream) {
+                          int levels, long long cap, int width,
+                          long long max_steps, void* stream) {
   base_sharded_kernel<<<grid_for(batch), kBlock, 0, (cudaStream_t)stream>>>(
-      (const int*)nxt, (const int*)keys, (const int*)bsids,
+      (const int*)nxt, (const int*)keys, (const int*)fat, (const int*)bsids,
       (const int*)ndist, (const int*)sids, (const int*)queries, (int*)node,
-      (int*)key, batch, shards, k_slots, levels, cap, max_steps);
+      (int*)key, batch, shards, k_slots, levels, cap, width, max_steps);
+  return (int)cudaGetLastError();
+}
+
+int fat_resolve_launch(const void* fused, const void* fat, const void* xs,
+                       const void* queries, void* node, void* key,
+                       long long batch, int width, void* stream) {
+  fat_resolve_kernel<<<grid_for(batch), kBlock, 0, (cudaStream_t)stream>>>(
+      (const int2*)fused, (const int*)fat, (const int*)xs,
+      (const int*)queries, (int*)node, (int*)key, batch, width);
   return (int)cudaGetLastError();
 }
 

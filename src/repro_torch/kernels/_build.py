@@ -28,24 +28,29 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # Every launcher takes its input pointers (queries last), the node and key
-# output pointers, the batch, its sizes, max_steps and the stream.
+# output pointers, the batch, its sizes, max_steps and the stream.  Every
+# pointer is c_void_p, or ctypes would cut it to 32 bits; ``fat`` may be
+# null (the scalar layout).
 _SIGNATURES = {
-    # fused, queries | levels, cap
-    "foresight_traverse_launch": [_P] * 4 + [_LL, _I, _LL, _LL, _P],
-    # nxt, keys, queries | levels, cap
-    "base_traverse_launch": [_P] * 5 + [_LL, _I, _LL, _LL, _P],
+    # fused, fat, queries | levels, cap, width
+    "foresight_traverse_launch": [_P] * 5 + [_LL, _I, _LL, _I, _LL, _P],
+    # nxt, keys, fat, queries | levels, cap, width
+    "base_traverse_launch": [_P] * 6 + [_LL, _I, _LL, _I, _LL, _P],
     # fused, auth_keys, queries | levels, cap
     "validated_traverse_launch": [_P] * 5 + [_LL, _I, _LL, _LL, _P],
-    # fused, shard_ids, queries | shards, levels, cap
-    "foresight_sharded_launch": [_P] * 5 + [_LL, _I, _I, _LL, _LL, _P],
-    # nxt, keys, shard_ids, queries | shards, levels, cap
-    "base_sharded_launch": [_P] * 6 + [_LL, _I, _I, _LL, _LL, _P],
-    # fused, block_sids, ndist, shard_ids, queries | shards, K, levels, cap
-    "foresight_clustered_launch": [_P] * 7 + [_LL, _I, _I, _I, _LL, _LL,
+    # fused, fat, shard_ids, queries | shards, levels, cap, width
+    "foresight_sharded_launch": [_P] * 6 + [_LL, _I, _I, _LL, _I, _LL, _P],
+    # nxt, keys, fat, shard_ids, queries | shards, levels, cap, width
+    "base_sharded_launch": [_P] * 7 + [_LL, _I, _I, _LL, _I, _LL, _P],
+    # fused, fat, block_sids, ndist, shard_ids, queries | shards, K,
+    # levels, cap, width
+    "foresight_clustered_launch": [_P] * 8 + [_LL, _I, _I, _I, _LL, _I, _LL,
                                               _P],
-    # nxt, keys, block_sids, ndist, shard_ids, queries | shards, K, levels,
-    # cap
-    "base_clustered_launch": [_P] * 8 + [_LL, _I, _I, _I, _LL, _LL, _P],
+    # nxt, keys, fat, block_sids, ndist, shard_ids, queries | shards, K,
+    # levels, cap, width
+    "base_clustered_launch": [_P] * 9 + [_LL, _I, _I, _I, _LL, _I, _LL, _P],
+    # fused, fat, x, queries, node, key | batch, width (no max_steps)
+    "fat_resolve_launch": [_P] * 6 + [_LL, _I, _P],
 }
 
 

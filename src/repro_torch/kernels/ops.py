@@ -1,17 +1,21 @@
 """Batched point lookup through the traversal kernels (port of ``repro.kernels.ops``).
 
-``search_kernel`` runs K1 (foresight) or K2 (base) on a monolithic
-scalar-layout state, and the sharded kernels on a ``ShardedSkipList``
-(``search_kernel_sharded``), and resolves ``found`` / ``vals``.  The
-monolithic kernels take any batch length, so nothing is padded there.
+``search_kernel`` runs K1 (foresight) or K2 (base) on a monolithic state,
+and the sharded kernels on a ``ShardedSkipList``
+(``search_kernel_sharded``), and resolves ``found`` / ``vals``; on a
+fat-layout state every launch ends in K9 and the values come from
+``fat_vals`` at the element-flat id.  The monolithic kernels take any
+batch length, so nothing is padded there.
 
 Size limits: the reference refuses a table, or a per-shard tile, over its
 12 MiB VMEM budget; the kernels here read the index straight from device
 memory, so device memory is the only limit of that kind, and the port
 refuses neither.  What remains are the indices the reference computes in
 int32: the record index ``lvl * capacity + x`` and, on the sharded path,
-the global node id ``sid * capacity + node``.  Past ``2**31 - 1`` they
-wrap there, so a state whose ``levels * capacity`` or ``S * capacity`` is
+the global node id ``sid * capacity + node``; under the fat layout the
+element id ``owner * node_width + lane`` and its global form ``sid *
+capacity * node_width + id``.  Past ``2**31 - 1`` they wrap there, so a
+state whose ``levels * capacity`` or ``S * capacity * node_width`` is
 above that has no reference answer and is refused with ``ValueError``.
 """
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from repro_torch.core import sharded as shd
 from repro_torch.core.sharded import ShardedSkipList
-from repro_torch.core.skiplist import NULL_VAL, SkipListState
+from repro_torch.core.skiplist import NULL_VAL, SkipListState, sorted_live_kv
 from repro_torch.kernels import foresight_traverse as ft
 from repro_torch.kernels.foresight_traverse import QBLK
 from repro_torch.kernels.ref import encode_float_keys
@@ -40,31 +44,49 @@ class KernelSearchResult(NamedTuple):
     found: torch.Tensor   # [B] bool
     vals: torch.Tensor    # [B] int32
     node: torch.Tensor    # [B] int32 level-0 candidate (the key's node if
-                          # found); on the sharded path sid * cap + node
+                          # found); on the sharded path sid * cap + node;
+                          # fat: element-flat, stride cap * node_width
 
 
-def tile_bytes(levels: int, capacity: int, foresight: bool) -> int:
-    """Bytes of the index a traversal reads from (scalar layout).
+def tile_bytes(levels: int, capacity: int, foresight: bool,
+               node_width: int = 1) -> int:
+    """Bytes of the index a traversal reads from.
 
     foresight: ``levels * capacity`` fused (ptr, key) int32 pairs;
-    base: ``levels * capacity`` int32 pointers + ``capacity`` int32 keys.
+    base: ``levels * capacity`` int32 pointers + ``capacity`` int32 keys;
+    the fat layout adds the ``capacity * node_width`` int32 run keys
+    (``fat_vals`` is read outside the kernels).  A copy of
+    ``repro.analysis.kernel_budget.tile_bytes``.
     """
-    return (levels * capacity * 2 * 4 if foresight
+    base = (levels * capacity * 2 * 4 if foresight
             else levels * capacity * 4 + capacity * 4)
+    if node_width > 1:
+        base += capacity * node_width * 4
+    return base
 
 
-def check_index_range(levels: int, capacity: int, n_shards: int = 1) -> None:
+def check_index_range(levels: int, capacity: int, n_shards: int = 1,
+                      node_width: int = 1) -> None:
     """Raise ValueError where the reference's int32 record index
-    (``lvl * capacity + x``) or global node id (``sid * capacity + node``)
-    would wrap."""
+    (``lvl * capacity + x``), global node id (``sid * capacity + node``)
+    or, under the fat layout, element id (``owner * node_width + lane``)
+    or its global form would wrap."""
     if levels * capacity > MAX_RECORDS:
         raise ValueError(
             f"levels * capacity = {levels * capacity} exceeds 2**31 - 1: the "
             "reference's int32 record index lvl * capacity + x would wrap")
-    if n_shards * capacity > MAX_RECORDS:
+    if node_width > 1 and capacity * node_width > MAX_RECORDS:
         raise ValueError(
-            f"S * capacity = {n_shards * capacity} exceeds 2**31 - 1: the "
-            "reference's int32 node id sid * capacity + node would wrap")
+            f"capacity * node_width = {capacity * node_width} exceeds "
+            "2**31 - 1: the reference's int32 element id owner * node_width "
+            "+ lane would wrap")
+    if n_shards * capacity * node_width > MAX_RECORDS:
+        what = ("sid * capacity + node" if node_width == 1 else
+                "sid * capacity * node_width + element")
+        raise ValueError(
+            f"S * capacity * node_width = {n_shards * capacity * node_width}"
+            f" exceeds 2**31 - 1: the reference's int32 node id {what} "
+            "would wrap")
 
 
 def _pad(q: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -83,20 +105,16 @@ def _pad(q: torch.Tensor) -> Tuple[torch.Tensor, int]:
 def shard_vmem_footprint(levels: int, capacity: int, foresight: bool,
                          node_width: int = 1) -> int:
     """Bytes of one shard's tile in the reference's VMEM accounting."""
-    if node_width > 1:
-        raise NotImplementedError("node_width > 1 (the fat-node layout) is "
-                                  "not ported yet: ROADMAP.md Queue 1, "
-                                  "fat-node layout")
-    return tile_bytes(levels, capacity, foresight)
+    return tile_bytes(levels, capacity, foresight, node_width)
 
 
 def vmem_footprint(state) -> int:
     """Bytes the (per-shard) index tile occupies in the reference's VMEM."""
     if isinstance(state, ShardedSkipList):
         return shard_vmem_footprint(state.levels, state.shard_capacity,
-                                    state.foresight)
+                                    state.foresight, state.node_width)
     return shard_vmem_footprint(state.levels, state.capacity,
-                                state.foresight)
+                                state.foresight, state.node_width)
 
 
 def fits_vmem(state) -> bool:
@@ -125,8 +143,18 @@ def shard_state(state: SkipListState, n_shards: int) -> ShardedSkipList:
     """Re-build a monolithic list as ``n_shards`` key-range shards.
 
     The live keys come back in order from one stable argsort of the key
-    array (the head sorts first, dead slots last); node ids are not kept.
+    array (the head sorts first, dead slots last), or under the fat layout
+    of the run lanes (``sorted_live_kv``); node ids are not kept.
     """
+    if state.fat_keys is not None:
+        keys_sorted, vals_sorted = sorted_live_kv(state)
+        valid = torch.arange(keys_sorted.shape[0],
+                             device=state.device) < state.n
+        return shd.build_sharded(keys_sorted, vals_sorted,
+                                 n_shards=n_shards, levels=state.levels,
+                                 foresight=state.foresight, valid=valid,
+                                 node_width=state.node_width,
+                                 device=state.device)
     cap = state.capacity
     m_total = cap - 2
     order = torch.argsort(state.keys, stable=True)
@@ -247,7 +275,8 @@ def dma_model_bytes(shl: ShardedSkipList, n_queries: int,
                     block_sids=None) -> int:
     """The reference's TPU cost model: HBM->VMEM tile bytes of one sharded
     search (dense grid, or the clustered grid of ``block_sids``).  Host
-    arithmetic, not a card measurement."""
+    arithmetic, not a card measurement.  Copied as it is: like the
+    reference it leaves a fat shard's ``[cap, B]`` run tile out."""
     nblk = -(-n_queries // QBLK)
     tile = shard_vmem_footprint(shl.levels, shl.shard_capacity,
                                 shl.foresight)
@@ -268,14 +297,15 @@ def _tables(shl: ShardedSkipList):
 def _dense(shl, sid, q, max_steps):
     kernel = (ft.foresight_traverse_sharded if shl.foresight
               else ft.base_traverse_sharded)
-    return kernel(*_tables(shl), sid, q, max_steps=max_steps)
+    return kernel(*_tables(shl), sid, q, shl.shards.fat_keys,
+                  max_steps=max_steps)
 
 
 def _clustered(shl, block_sids, ndist, sid, q, max_steps):
     kernel = (ft.foresight_traverse_clustered if shl.foresight
               else ft.base_traverse_clustered)
     return kernel(*_tables(shl), block_sids, ndist, sid, q,
-                  max_steps=max_steps)
+                  shl.shards.fat_keys, max_steps=max_steps)
 
 
 def _degenerate_launch(shl: ShardedSkipList, plan: ClusterPlan, split, *,
@@ -315,10 +345,12 @@ def search_kernel_sharded(shl: ShardedSkipList, queries, *,
     does, so the plan (and auto-K) sees the pad lanes too; it runs K5/K6,
     or K7's split when auto-K would degenerate, and unsorts.
     ``cluster=False`` routes and runs K3/K4.  Both give the same ``found``,
-    ``vals`` and global ``node = sid * cap + node``.  An explicit
-    ``k_shards`` below the widest block's shard count raises.
+    ``vals`` and global ``node = sid * cap + node`` (fat: ``sid * cap *
+    node_width`` + the element-flat id).  An explicit ``k_shards`` below
+    the widest block's shard count raises.
     """
-    check_index_range(shl.levels, shl.shard_capacity, shl.n_shards)
+    check_index_range(shl.levels, shl.shard_capacity, shl.n_shards,
+                      shl.node_width)
     q0 = torch.as_tensor(queries, device=shl.device).to(torch.int32)
     q, B = _pad(q0)
     if cluster:
@@ -340,8 +372,11 @@ def search_kernel_sharded(shl: ShardedSkipList, queries, *,
         node, ckey = _dense(shl, sid, q, max_steps)
     node, ckey, sid = node[:B], ckey[:B], sid[:B]
     found = ckey == q0
-    gnode = sid.long() * shl.shard_capacity + node.long()
-    vals = torch.where(found, shl.shards.vals.reshape(-1)[gnode], NULL_VAL)
+    nw = shl.node_width
+    gnode = sid.long() * (shl.shard_capacity * nw) + node.long()
+    flat_vals = (shl.shards.vals if nw == 1 else shl.shards.fat_vals
+                 ).reshape(-1)
+    vals = torch.where(found, flat_vals[gnode], NULL_VAL)
     return KernelSearchResult(found, vals, gnode.to(torch.int32))
 
 
@@ -362,16 +397,18 @@ def search_kernel(state, queries: torch.Tensor, *, max_steps: int = 0,
             f"search_kernel on {type(state).__name__}: mesh states are not "
             "ported yet (ROADMAP.md Queue 1, item 11, mesh-distributed "
             "index)")
-    check_index_range(state.levels, state.capacity)
+    check_index_range(state.levels, state.capacity, 1, state.node_width)
     q = torch.as_tensor(queries, device=state.device).to(torch.int32)
     if state.foresight:
-        node, ckey = ft.foresight_traverse(state.fused, q,
+        node, ckey = ft.foresight_traverse(state.fused, q, state.fat_keys,
                                            max_steps=max_steps)
     else:
         node, ckey = ft.base_traverse(state.nxt, state.keys, q,
-                                      max_steps=max_steps)
+                                      state.fat_keys, max_steps=max_steps)
     found = ckey == q
-    vals = torch.where(found, state.vals[node.long()], NULL_VAL)
+    flat_vals = (state.vals if state.fat_keys is None
+                 else state.fat_vals.reshape(-1))
+    vals = torch.where(found, flat_vals[node.long()], NULL_VAL)
     return KernelSearchResult(found, vals, node)
 
 

@@ -372,9 +372,13 @@ def test_convert_round_trip_and_refusals():
     with pytest.raises(ValueError, match="stacked"):
         sharded_from_numpy({"shards.keys": np.zeros(8, np.int32),
                             "boundaries": np.zeros(1, np.int32)}, "cpu")
-    with pytest.raises(NotImplementedError, match="fat"):
-        tsh.build_sharded([1, 2], [1, 2], n_shards=1, node_width=8,
-                          device="cpu")
+    fat = shd.build_sharded(jnp.arange(10, 500, 7, dtype=jnp.int32),
+                            jnp.arange(70, dtype=jnp.int32), n_shards=3,
+                            levels=6, node_width=8)
+    again = sharded_from_numpy(_np(fat), "cpu")
+    assert again.node_width == 8
+    _assert_same(again, fat)
+    _assert_same(sharded_from_numpy(sharded_to_numpy(again), "cpu"), fat)
 
 
 def test_eager_search_refuses_a_stack_past_int32():

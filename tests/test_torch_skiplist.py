@@ -166,19 +166,6 @@ def test_device_none_without_cuda_raises(monkeypatch):
         state_from_numpy(arrays)
 
 
-def test_fat_layout_raises_not_implemented():
-    keys = np.arange(1, 5, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsl.empty(16, 4, node_width=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsl.build(keys, keys, capacity=16, levels=4, node_width=8,
-                  device="cpu")
-    fat = sl.build(jnp.asarray(keys), jnp.asarray(keys), capacity=16,
-                   levels=4, node_width=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        state_from_numpy(_jax_arrays(fat), "cpu")
-
-
 def test_build_rejects_too_small_capacity():
     keys = np.arange(1, 8, dtype=np.int32)
     with pytest.raises(ValueError, match="capacity"):
