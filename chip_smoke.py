@@ -40,6 +40,16 @@ Phases, one JSON line each:
    undersized ``k_shards`` raises; ``apply_ops_sharded(rebalance=True)``
    on 4 batches of 32 Zipf inserts equals the CPU in every array, result
    and shard count;
+7b. small mesh check, the mesh index at D = 1 on one process group of one
+   rank (NCCL for the card, gloo for the CPU run; an in-process store):
+   ``build_mesh_index`` (n=1500, S=8, L=12, both variants, node widths 1
+   and 8), ``search_mesh``, ``search_kernel_mesh`` (K10) and
+   ``search_kernel(mesh=)`` on the card equal the CPU in every state
+   array, found, vals and node; K5/K6 on the mesh's plan equal their plain
+   versions; ``apply_ops_mesh(rebalance=True)`` on an ``empty_mesh_index``
+   under 4 batches of 32 Zipf inserts, and ``pad_shards`` with the
+   in-place split, merge, watermark pass and guard, equal the CPU in every
+   array, result, shard count and ``DeviceLoadStats``;
 8. the sharded engine at the paper's size, once per variant: the same
    2^25 keys over 64 shards of 2^21 slots, 21 levels, built with
    ``build_sharded``; 2^20 uniform and 2^20 Zipf(1.2) queries through
@@ -50,6 +60,16 @@ Phases, one JSON line each:
    invariant and an unchanged input; kernel, plain, plan, end-to-end and
    ``torch.searchsorted`` times, bounds from a per-shard replay, path
    lengths, auto-K and the ``ndist`` histogram;
+8b. the mesh index at the paper's size, after each sharded variant (its
+   stack freed first): ``build_mesh_index(n_devices=1, n_shards=64)``
+   equal to ``build_sharded``'s build (fingerprint); both traffics
+   through ``search_kernel_mesh`` held against the oracle and the sharded
+   clustered answers (found, vals, node); 256 updates of fig3's mix
+   through ``apply_ops_mesh`` (rebalancing off) against the host oracle,
+   then ``check_mesh_invariant`` and ``DeviceLoadStats``; times of the
+   whole path, its exchange (route, sort, both ``all_to_all``s), its
+   K5/K6 launch and the same index's ``search_kernel_sharded``, the
+   launch's bound and ``torch.searchsorted``;
 9. small fat check, node widths B = 8 and 128, both variants: a fat
    ``build`` (n=4000), ``build_sharded`` (n=1500, S=8), ``split_shard`` to
    S=9, ``merge_shards`` and ``repack`` on the card equal the CPU; K1-K6
@@ -76,8 +96,9 @@ Phases, one JSON line each:
    input; K9 alone (``fat_resolve``) checked and timed on the final
    predecessors; times, bounds from a replay that counts distinct records
    plus distinct runs x B x 4 bytes, path lengths, peak memory;
-11. the ``kernels`` line: every ported kernel with its main-path launches,
-   the fat launches of K1-K6 as rows of their own, and ``fat_resolve``.
+11. the ``kernels`` line: every ported kernel with its main-path launches
+   (K5/K6's include those K10 made), the fat launches of K1-K6 as rows of
+   their own, ``fat_resolve`` and ``search_kernel_mesh`` (K10).
 
 Then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check, build or launch raises, and the script exits non-zero.
@@ -85,6 +106,7 @@ Any failed check, build or launch raises, and the script exits non-zero.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -93,15 +115,21 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.convert import mesh_to_numpy  # noqa: E402
+from repro_torch.core import mesh_index as mi  # noqa: E402
+from repro_torch.core import rebalance_traced as rbt  # noqa: E402
 from repro_torch.core import sharded as shd  # noqa: E402
 from repro_torch.core import skiplist as sl  # noqa: E402
 from repro_torch.core.validated import search_validated  # noqa: E402
 from repro_torch.core.versioned import VersionedIndex  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import foresight_traverse as ft  # noqa: E402
+from repro_torch.kernels import mesh_launch as ml  # noqa: E402
 from repro_torch.kernels import validated_traverse as vt  # noqa: E402
+from repro_torch.launch.mesh import make_index_mesh  # noqa: E402
 
 SEED = 0
 # benchmarks/fig4_batch_sweep.py:3-4 (2^25 elements), benchmarks/common.py
@@ -167,12 +195,14 @@ def reset_launches() -> None:
     for wrapper in ft.WALKS:
         wrapper.fat_launches = 0
     ft.fat_resolve.launches = 0
+    ml.search_kernel_mesh.launches = 0
 
 
 def read_launches() -> dict:
     out = {name: w.launches for name, (w, *_) in KERNELS.items()}
     out.update({f"{w.__name__}/fat": w.fat_launches for w in ft.WALKS})
     out["fat_resolve"] = ft.fat_resolve.launches
+    out["search_kernel_mesh"] = ml.search_kernel_mesh.launches
     return out
 
 
@@ -853,7 +883,7 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
     builds fat shards (K9 in every launch; the eager ``search_sharded``
     and node ids into ``fat_vals`` are checked too, and ``scalar``, the
     scalar runs' answers, must give the same found and vals).  Returns
-    (kernels-line rows, answers)."""
+    (kernels-line rows, answers, the build's fingerprint)."""
     stage_s, t_stage = {}, time.perf_counter()
     t_phase = t_stage
 
@@ -1043,7 +1073,331 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
     emit(report)
     del shl, res, sorted_keys, qs, fatk
     torch.cuda.empty_cache()
-    return list(rows.values()), answers
+    return list(rows.values()), answers, before
+
+
+# ---------------------------------------------------------------------------
+# The mesh index (K10) at D = 1: one process group of one rank
+# ---------------------------------------------------------------------------
+
+MESH_PY = "src/repro/kernels/mesh_launch.py"
+
+
+def init_mesh_group() -> dict:
+    """One rank, world size 1, an in-process store (no TCP rendezvous): NCCL
+    carries the card's tensors; gloo (on the loopback device) carries the
+    CPU run that the card is held against.  {device: its index mesh}."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
+                            rank=0, world_size=1)
+    return {DEVICE: make_index_mesh(1), "cpu": make_index_mesh(1, "cpu")}
+
+
+def check_same_mesh(got: mi.MeshShardedIndex, want: mi.MeshShardedIndex,
+                    what: str) -> None:
+    a, b = mesh_to_numpy(got), mesh_to_numpy(want)
+    check(sorted(a) == sorted(b), f"{what} (fields)")
+    for k in a:
+        check(np.array_equal(a[k], b[k]), f"{what} ({k})")
+
+
+def check_same_stats(got: rbt.DeviceLoadStats, want: rbt.DeviceLoadStats,
+                     what: str) -> None:
+    for g, w in zip(got, want):
+        check(g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu()),
+              f"{what} (DeviceLoadStats)")
+
+
+def mesh_plan(mx: mi.MeshShardedIndex, q: torch.Tensor) -> tuple:
+    """K5/K6's arguments for the lanes a one-device mesh receives (``q``
+    itself), planned as ``search_kernel_mesh`` plans them."""
+    local = mx.local
+    plan = ops.cluster_queries(local.boundaries, ops._pad(q)[0],
+                               k_shards=min(ft.QBLK, local.n_shards))
+    return (plan.block_sids, plan.ndist, plan.sid_sorted, plan.q_sorted,
+            local.shards.fat_keys)
+
+
+def small_mesh_check(meshes: dict) -> None:
+    """The mesh index on the card equals the port's CPU run: build, the
+    eager and kernel searches, the dispatch, K5/K6 against their plain
+    versions, a rebalancing apply on an empty mesh index, and the in-place
+    passes on a padded index."""
+    rng = np.random.default_rng(SEED)
+    keys = np.sort(rng.choice(1 << 22, 1500, replace=False)).astype(np.int32)
+    q_np = np.concatenate([rng.choice(keys, 2048), rng.integers(
+        0, 1 << 22, 2048)]).astype(np.int32)
+    report = {"phase": "small_mesh_check", "n": 1500, "shards": 8,
+              "levels": 12, "devices": 1}
+    t0 = time.perf_counter()
+    for foresight in (True, False):
+        for width in (1, 8):
+            label = f"{variant(foresight)} B={width}"
+            mx, out = {}, {}
+            for dev, mesh in meshes.items():
+                mx[dev] = mi.build_mesh_index(
+                    keys, keys * 3, n_devices=1, n_shards=8, levels=12,
+                    seed=SEED, foresight=foresight, node_width=width, rank=0,
+                    device=dev)
+                q, = on(dev, q_np)
+                before = ml.search_kernel_mesh.launches
+                out[dev] = [*mi.search_mesh(mx[dev], q, mesh=mesh),
+                            *ml.search_kernel_mesh(mx[dev], q, mesh=mesh),
+                            *ops.search_kernel(mx[dev], q, mesh=mesh)]
+                if dev == DEVICE:
+                    check(ml.search_kernel_mesh.launches == before + 2,
+                          f"{label}: K10 launched K5/K6")
+            check_same_mesh(mx[DEVICE], mx["cpu"],
+                            f"{label} build_mesh_index, card equals CPU")
+            check(all(torch.equal(a.cpu(), b) for a, b in
+                      zip(out[DEVICE], out["cpu"])),
+                  f"{label} search_mesh, search_kernel_mesh and search_kernel"
+                  "(mesh=): found, vals, node, card equals CPU")
+            check(torch.equal(out[DEVICE][0], out[DEVICE][2]) and
+                  torch.equal(out[DEVICE][1], out[DEVICE][3]),
+                  f"{label}: the kernels equal the eager mesh search")
+            name = sharded_names(foresight)[1]
+            wrapper, plain, *_ = KERNELS[name]
+            local = mx[DEVICE].local
+            args = mesh_plan(mx[DEVICE], on(DEVICE, q_np)[0])
+            err = max_abs_err(wrapper(*shard_tables(local), *args),
+                              plain(*shard_tables(local), *args))
+            check(err == 0, f"{label}: {name} equals its plain version")
+            report[f"{name}_B{width}_err"] = err
+
+    # rebalancing: the in-place passes on an empty mesh index (8 shards of
+    # 16 slots) under 4 batches of 32 Zipf inserts, and on a padded index
+    k48 = np.sort(np.random.default_rng(SEED).choice(
+        1 << 16, 48, replace=False)).astype(np.int32)
+    for foresight in (True, False):
+        v = variant(foresight)
+        em = {dev: mi.empty_mesh_index(
+            n_devices=1, n_shards=8, capacity=16, levels=8, seed=SEED,
+            foresight=foresight, key_span=1 << 16, rank=0, device=dev)
+            for dev in meshes}
+        zrng = np.random.default_rng(7)
+        for b in range(4):
+            kk = (int(k48[2]) + (zrng.zipf(ZIPF_A, 32) - 1) % 4096
+                  ).astype(np.int32)
+            ins = np.full(32, sl.OP_INSERT, np.int32)
+            res, stats = {}, {}
+            for dev, mesh in meshes.items():
+                em[dev], res[dev], stats[dev] = mi.apply_ops_mesh(
+                    em[dev], *on(dev, ins, kk, kk * 2), mesh=mesh,
+                    rebalance=True, seed=b)
+            what = f"{v} rebalancing apply_ops_mesh, batch {b}"
+            check(torch.equal(res[DEVICE].cpu(), res["cpu"]),
+                  f"{what}: results, card equals CPU")
+            check_same_mesh(em[DEVICE], em["cpu"], f"{what}: state")
+            check_same_stats(stats[DEVICE], stats["cpu"], what)
+        report[f"{v}_live_shards_after_zipf"] = rbt.live_shard_count(
+            em[DEVICE].local)
+        check(report[f"{v}_live_shards_after_zipf"] > 1,
+              f"{v}: the in-place passes split the empty mesh index")
+        st = {}
+        for dev in meshes:
+            x = rbt.pad_shards(shd.build_sharded(
+                k48, k48 * 3, n_shards=4, capacity=16, levels=8, seed=SEED,
+                foresight=foresight, device=dev), 16)
+            at = int(x.boundaries[1]) + 1
+            x = rbt.split_shard_traced(x, 1, at, seed=5)
+            x = rbt.merge_shards_traced(x, 1, seed=3)
+            x, stats = rbt.watermark_rebalance_traced(x, seed=2)
+            kk = (int(k48[2]) + (np.random.default_rng(9).zipf(ZIPF_A, 96)
+                                 - 1) % 4096).astype(np.int32)
+            x, splits = rbt.exhaustion_guard_traced(
+                x, *on(dev, np.full(96, sl.OP_INSERT, np.int32), kk),
+                seed=11)
+            st[dev] = (x, stats, splits)
+        check_same_sharded(st[DEVICE][0], st["cpu"][0],
+                           f"{v} pad_shards + in-place passes")
+        check(st[DEVICE][1:] == st["cpu"][1:],
+              f"{v} in-place passes: split and merge counts")
+        report[f"{v}_in_place_guard_splits"] = st[DEVICE][2]
+    report["seconds"] = time.perf_counter() - t0
+    emit(report)
+
+
+def mesh_exchange(mx: mi.MeshShardedIndex, q: torch.Tensor, mesh) -> list:
+    """K10's data movement alone: route, sort, the outbound exchange of
+    the queries and the return exchange of three result lanes."""
+    D, _, group = mi._validate(mx, mesh)
+    did = shd.route(mx.device_boundaries, q)
+    (rq,), _, perm, starts, did_s = mi._exchange_out(did, (q,), (0,), D,
+                                                     group)
+    return mi._exchange_back((rq, rq, rq), perm, starts, did_s, D, group)
+
+
+def device_breakdown(fn, top: int = 10) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device kernels that
+    ran, by device time (the ``top`` largest), and their sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.device_time_total > 0),
+                  key=lambda r: -r[1])
+    return {"device_ms": sum(r[1] for r in rows), "launches":
+            sum(r[2] for r in rows), "top": [[k[:80], ms, n]
+                                             for k, ms, n in rows[:top]]}
+
+
+def mesh_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
+                   foresight: bool, sharded: tuple, mesh) -> dict:
+    """The paper's keys through ``build_mesh_index(n_devices=1,
+    n_shards=64)``: the build against ``build_sharded``'s fingerprint, both
+    traffics through ``search_kernel_mesh`` against the oracle and the
+    sharded clustered answers (``sharded``: (fingerprint, answers)), 256
+    updates through ``apply_ops_mesh``, then times of the whole path, its
+    exchange and its K5/K6 launch, with the bound and the library time.
+    Returns the phase's report."""
+    stage_s, t_stage = {}, time.perf_counter()
+    t_phase = t_stage
+
+    def lap(stage: str) -> None:
+        nonlocal t_stage
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage_s[stage] = stage_s.get(stage, 0.0) + now - t_stage
+        t_stage = now
+
+    dev = torch.device(DEVICE)
+    v = variant(foresight)
+    clus = sharded_names(foresight)[1]
+    fp_sharded, answers = sharded
+    (types, ks, vs), want_results, current = stream
+    qs = {name: torch.from_numpy(q).to(dev) for name, q in traffic.items()}
+    torch.cuda.reset_peak_memory_stats()
+
+    # The main path, with every launch counter at 0 just before it.
+    reset_launches()
+    t0 = time.perf_counter()
+    mx = mi.build_mesh_index(torch.from_numpy(keys_np).to(dev),
+                             torch.from_numpy(keys_np + 1).to(dev),
+                             n_devices=1, n_shards=SHARDS,
+                             levels=SHARD_LEVELS, foresight=foresight,
+                             seed=SEED, rank=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    res = {name: ml.search_kernel_mesh(mx, q, mesh=mesh)
+           for name, q in qs.items()}
+    t0 = time.perf_counter()
+    new, results, stats = mi.apply_ops_mesh(mx, *on(dev, types, ks, vs),
+                                            mesh=mesh)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    after_update = ml.search_kernel_mesh(new, qs["uniform"], mesh=mesh)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    mesh_launches = launches["search_kernel_mesh"]
+    lap("main_path")
+    check(mesh_launches >= 1 and launches[clus] == mesh_launches,
+          f"the mesh path launched {clus} through K10")
+
+    check(fingerprint(mx.local) == fp_sharded,
+          f"{v} build_mesh_index equals build_sharded (fingerprint)")
+    for name, r in res.items():
+        what = f"{v} search_kernel_mesh {name}"
+        check_lookups(r.found, r.vals, traffic[name], keys_np, what)
+        check(all(torch.equal(a.cpu(), b) for a, b in
+                  zip(r, answers[(name, True)])),
+              f"{what}: found, vals, node equal search_kernel_sharded's")
+    check(np.array_equal(results.cpu().numpy(), want_results),
+          "every apply_ops_mesh result equals the oracle")
+    check_lookups(after_update.found, after_update.vals, traffic["uniform"],
+                  current, "search_kernel_mesh after the update")
+    check(bool(mi.check_mesh_invariant(new, expect_n=len(current),
+                                       mesh=mesh)),
+          "check_mesh_invariant and the live count after the update")
+    check(int(stats.live[0]) == len(current) and
+          int(stats.routed[0]) == SHARD_UPDATE_OPS and
+          float(stats.live_imbalance) == 1.0,
+          "DeviceLoadStats after the update")
+    del new, after_update
+    torch.cuda.empty_cache()
+    lap("oracle_checks")
+
+    report = {"phase": "mesh_full_size", "variant": v, "devices": 1,
+              "n": FULL_N, "shards": SHARDS, "levels": SHARD_LEVELS,
+              "shard_capacity": mx.shard_capacity, "k_shards":
+              min(ft.QBLK, SHARDS), "build_s": build_s,
+              "update_ops": SHARD_UPDATE_OPS, "update_s": update_s,
+              "update_us_per_op": update_s / SHARD_UPDATE_OPS * 1e6,
+              "k10_launches": mesh_launches}
+    sorted_keys = torch.from_numpy(keys_np).to(dev)
+    wrapper, plain, *_ = KERNELS[clus]
+    tables = shard_tables(mx.local)
+    for name, q in qs.items():
+        args = mesh_plan(mx, q)
+        err = max_abs_err(wrapper(*tables, *args), plain(*tables, *args))
+        check(err == 0, f"{clus} equals its plain version on the mesh's "
+                        f"lanes ({name})")
+        sid = shd.route(mx.local.boundaries, q)
+        fp = path_footprint(tables, q, sid)
+        lap("kernel_check_and_replay")
+        t = dict(
+            e2e_ms=time_ms(lambda: ml.search_kernel_mesh(mx, q, mesh=mesh),
+                           KERNEL_REPS),
+            # the same index as one ShardedSkipList, the same call as K10's
+            sharded_e2e_ms=time_ms(lambda: ops.search_kernel_sharded(
+                mx.local, q, cluster=True, k_shards=args[0].shape[1]),
+                KERNEL_REPS),
+            exchange_ms=time_ms(lambda: mesh_exchange(mx, q, mesh),
+                                KERNEL_REPS),
+            ms=time_ms(lambda: wrapper(*tables, *args), KERNEL_REPS),
+            plain_ms=time_ms(lambda: plain(*tables, *args), PLAIN_REPS),
+            library_ms=time_ms(lambda: torch.searchsorted(sorted_keys, q),
+                               KERNEL_REPS))
+        prof = device_breakdown(
+            lambda: ml.search_kernel_mesh(mx, q, mesh=mesh))
+        prof["idle_share"] = 1 - prof["device_ms"] / t["e2e_ms"]
+        lap("timing")
+        B = q.numel()
+        nblk, K = args[0].shape
+        io = B * 4 * 4 + (nblk * K + nblk) * 4         # q, sid, node, key
+        bytes_ms = (fp["distinct_bytes"] + io) / HBM_BYTES_PER_S * 1e3
+        ops_ms = fp["steps"] / SCALAR_OPS_PER_S * 1e3
+        report[name] = {**t, "max_abs_err": err, "batch": B,
+                        "hits": int(res[name].found.sum()),
+                        "mean_path_steps": fp["steps"] / B,
+                        "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                     else "operations"),
+                        "exchange_share": t["exchange_ms"] / t["e2e_ms"],
+                        "mesh_over_sharded_e2e": t["e2e_ms"]
+                        / t["sharded_e2e_ms"], "profile": prof}
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    report["stage_s"] = stage_s
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+    del mx, res, sorted_keys, qs, tables
+    torch.cuda.empty_cache()
+    report["launches"] = launches
+    return report
+
+
+def mesh_row(reports: list) -> dict:
+    """The kernels-line row of K10, from the foresight run on traffic A
+    (uniform); launches over both variants' main paths."""
+    a = reports[0]["uniform"]
+    return {"name": "search_kernel_mesh", "route": "cuda",
+            "source": TRAVERSE_CU, "launcher":
+            "src/repro_torch/kernels/mesh_launch.py",
+            "replaces": f"{MESH_PY}:78",
+            "launches": sum(r["k10_launches"] for r in reports),
+            "max_abs_err": max(r[t]["max_abs_err"] for r in reports
+                               for t in ("uniform", "zipf")),
+            "ms": a["ms"], "plain_ms": a["plain_ms"],
+            "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+            "library_ms": a["library_ms"], "e2e_ms": a["e2e_ms"],
+            "exchange_ms": a["exchange_ms"]}
 
 
 def fat_tables(st: sl.SkipListState):
@@ -1412,6 +1766,8 @@ def main() -> None:
     small_check()
     small_update_check()
     small_sharded_check()
+    meshes = init_mesh_group()
+    small_mesh_check(meshes)
     rng = np.random.default_rng(SEED)
     keys_np = np.sort(rng.choice(FULL_SPAN, FULL_N, replace=False))
     keys_np = keys_np.astype(np.int32)
@@ -1426,13 +1782,22 @@ def main() -> None:
     t0 = time.perf_counter()
     stream = (ops_, *host_oracle(keys_np, *ops_[:2]))
     emit({"phase": "sharded_host_oracle", "seconds": time.perf_counter() - t0})
-    answers, scalar_answers = {}, {}
+    answers, scalar_answers, mesh_reports = {}, {}, []
     for foresight in (True, False):
-        sharded_rows, answers = sharded_full_size(keys_np, traffic, stream,
-                                                  foresight, answers)
+        sharded_rows, answers, fp = sharded_full_size(
+            keys_np, traffic, stream, foresight, answers)
         scalar_answers = scalar_answers or answers
         rows += sharded_rows
+        mesh_reports.append(mesh_full_size(keys_np, traffic, stream,
+                                           foresight, (fp, answers),
+                                           meshes[DEVICE]))
     by_name = {r["name"]: r for r in rows}
+    for r in mesh_reports:          # K10's K5/K6 launches count there too
+        for name in KERNELS:
+            by_name[name]["launches"] += r["launches"][name]
+    rows.append(mesh_row(mesh_reports))
+    check(rows[-1]["launches"] > 0, "search_kernel_mesh (K10) launched on "
+                                    "the mesh path")
     emit({"phase": "sharded_ratio",
           "foresight_over_base_ms": {
               kind: by_name[f"foresight_traverse_{kind}"]["ms"]
@@ -1452,7 +1817,7 @@ def main() -> None:
     fat_rows = [r["row"] for r in fat.values()]
     answers = {}
     for foresight in (True, False):
-        sharded_rows, answers = sharded_full_size(
+        sharded_rows, answers, _ = sharded_full_size(
             keys_np, traffic, stream, foresight, answers, width=128,
             scalar=scalar_answers)
         fat_rows += sharded_rows
@@ -1473,6 +1838,7 @@ def main() -> None:
     for r in fat_rows:
         check(r["launches"] > 0, f"{r['name']} launched on its path")
     rows += fat_rows + [k9]
+    dist.destroy_process_group()
     emit({"kernels": rows})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,8 +7,11 @@ Same module names as ``repro`` so each piece has an obvious counterpart:
 and mixed-view reads), ``kernels.ref`` (search oracles), ``kernels.
 foresight_traverse`` and ``kernels.validated_traverse`` (the traversal
 kernels and their plain versions), ``kernels.ops`` (batched lookup through
-the kernels) and ``convert`` (state exchange with ``repro`` as numpy
-arrays).
+the kernels), ``core.sharded`` and ``core.rebalance_traced`` (range
+shards, their rebalancing on the host and in place), ``core.mesh_index``,
+``launch.mesh`` and ``kernels.mesh_launch`` (the index across the devices
+of a ``torch.distributed`` mesh) and ``convert`` (state exchange with
+``repro`` as numpy arrays).
 
 The package imports torch and numpy only.  State-creating entry points run
 on the GPU unless the caller passes ``device="cpu"``.

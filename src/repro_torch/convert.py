@@ -6,7 +6,9 @@ move it across bit for bit (the ``rng`` key included) and search it with
 the other.  ``sharded_to_numpy`` / ``sharded_from_numpy`` do the same for
 a ``ShardedSkipList``, under the keys ``shards.<field>`` and
 ``boundaries``.  Fat-layout states carry ``fat_keys``, ``fat_vals`` and
-``nlen`` as well.
+``nlen`` as well.  ``mesh_local_from_numpy`` / ``mesh_to_numpy`` carry
+one device's slice of a mesh index, under ``local.shards.<field>``,
+``local.boundaries`` and ``device_boundaries``.
 """
 from __future__ import annotations
 
@@ -15,8 +17,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core.mesh_index import MeshShardedIndex
 from repro_torch.core.sharded import ShardedSkipList
 from repro_torch.core.skiplist import SkipListState, resolve_device
+
 
 def _state(arrays: Dict[str, np.ndarray], dev: torch.device
            ) -> SkipListState:
@@ -65,4 +69,28 @@ def sharded_to_numpy(shl: ShardedSkipList) -> Dict[str, np.ndarray]:
     """``{"shards.<field>": array, "boundaries": array}``, copied to host."""
     out = {f"shards.{k}": v for k, v in state_to_numpy(shl.shards).items()}
     out["boundaries"] = shl.boundaries.cpu().numpy()
+    return out
+
+
+def mesh_local_from_numpy(arrays: Dict[str, np.ndarray], rank: int,
+                          device=None) -> MeshShardedIndex:
+    """Device ``rank``'s slice of a mesh index from the reference's stacked
+    arrays: ``{"local.shards.<field>": [D, S, ...], "local.boundaries":
+    [D, S], "device_boundaries": [D]}``."""
+    db = np.array(arrays["device_boundaries"], dtype=np.int32, copy=True)
+    if not 0 <= rank < db.shape[0]:
+        raise ValueError(f"rank {rank} outside the {db.shape[0]} device(s)")
+    local = {k[len("local."):]: np.asarray(v)[rank]
+             for k, v in arrays.items() if k.startswith("local.")}
+    dev = resolve_device(device)
+    db = torch.from_numpy(db).to(dev)
+    return MeshShardedIndex(sharded_from_numpy(local, dev), db, int(rank))
+
+
+def mesh_to_numpy(mx: MeshShardedIndex) -> Dict[str, np.ndarray]:
+    """This device's slice: ``{"local.shards.<field>": [S, ...],
+    "local.boundaries": [S], "device_boundaries": [D]}``, copied to host
+    (slice ``rank`` of the reference's stacked arrays)."""
+    out = {f"local.{k}": v for k, v in sharded_to_numpy(mx.local).items()}
+    out["device_boundaries"] = mx.device_boundaries.cpu().numpy()
     return out

@@ -27,12 +27,13 @@ What differs from the reference, and why the results do not:
   clones the whole stacked state once per batch and leaves its input
   unchanged, as ``core.skiplist.apply_ops`` does.  There is no
   ``max_segment`` window: it only shapes the reference's traced scan.
-* Rebalancing runs the reference's eager host drivers (numpy, the same
-  tie order).  A state with a static shard ceiling (``S > 1`` and a last
-  boundary of ``KEY_MAX``, e.g. every ``empty_sharded`` with ``S > 1``)
-  rebalances in the reference through ``core.rebalance_traced``, which is
-  not ported: ``rebalance`` and ``apply_ops_sharded(rebalance=True)``
-  raise ``NotImplementedError`` there rather than take the host path.
+* Rebalancing runs the reference's eager host passes (numpy, the same
+  tie order) on a fully live state.  A state with a static shard ceiling
+  (``S > 1`` and a last boundary of ``KEY_MAX``, e.g. every
+  ``empty_sharded`` with ``S > 1``) rebalances in place inside that
+  ceiling (``core.rebalance_traced``), as the reference does; so does
+  every state of the mesh index, which the reference applies under
+  ``shard_map`` (``apply_ops_sharded``'s private ``_in_place``).
 * The eager searches (``search_sharded``, ``range_scan_sharded``) index
   the flattened stack as ``(sid * L + lvl) * cap + x``, and under the fat
   layout its runs as ``(sid * cap + node) * B + lane``, which the
@@ -60,10 +61,6 @@ from repro_torch.core.skiplist import (HEAD, KEY_MAX, KEY_MIN, NULL_VAL,
                                        sorted_live_kv, usable_capacity)
 
 MAX_INDEX = 2**31 - 1
-_TRACED_TODO = ("this state carries a static shard ceiling (S > 1 and a "
-                "KEY_MAX last boundary), which the reference rebalances in "
-                "place with core.rebalance_traced: not ported yet (ROADMAP.md "
-                "Queue 1, item 7, traced rebalancing)")
 
 
 class ShardedSkipList(NamedTuple):
@@ -556,10 +553,14 @@ def rebalance(shl: ShardedSkipList, *, high_water: float = HIGH_WATER,
     """Watermark-driven split/merge pass: (new state, stats).
 
     Contents are preserved; only the partition and tower heights change.
-    Raises ``NotImplementedError`` on a state with a static ceiling.
+    A state with a static ceiling re-levels in place inside it
+    (``rebalance_traced.watermark_rebalance_traced``).
     """
     if _has_static_ceiling(shl):
-        raise NotImplementedError(_TRACED_TODO)
+        from repro_torch.core import rebalance_traced as rbt
+        return rbt.watermark_rebalance_traced(
+            shl, high_water=high_water, low_water=low_water,
+            max_shards=max_shards, seed=seed)
     return _watermark_rebalance(shl, high_water=high_water,
                                 low_water=low_water, max_shards=max_shards,
                                 seed=seed)
@@ -641,7 +642,8 @@ def apply_ops_sharded(shl: ShardedSkipList, op_types, keys, vals, *,
                       rebalance: bool = False,
                       high_water: float = HIGH_WATER,
                       low_water: float = LOW_WATER,
-                      max_shards: int = MAX_SHARDS, seed: int = 0
+                      max_shards: int = MAX_SHARDS, seed: int = 0,
+                      _in_place: bool = False
                       ) -> Tuple[ShardedSkipList, torch.Tensor]:
     """Apply a linearized mixed-op batch, routed per shard: (new state,
     results [B] int32).
@@ -651,16 +653,25 @@ def apply_ops_sharded(shl: ShardedSkipList, op_types, keys, vals, *,
     monolithic ``apply_ops``'s.  ``shl`` is left unchanged.  With
     ``rebalance`` a pre-pass splits ahead of any shard the batch's inserts
     would exhaust (``_exhaustion_guard``) and a post-pass re-levels the
-    watermarks; ``seed`` feeds the towers of those rebuilds.
+    watermarks; ``seed`` feeds the towers of those rebuilds.  On a state
+    with a static ceiling, or with ``_in_place`` (the mesh index, which
+    the reference applies under ``shard_map``), both passes are the
+    in-place passes of ``core.rebalance_traced`` and the shard axis keeps
+    its length.
     """
     dev = shl.device
     op_types, keys, vals = (torch.as_tensor(a, device=dev).to(torch.int32)
                             for a in (op_types, keys, vals))
+    in_place = False
     if rebalance:
-        if _has_static_ceiling(shl):
-            raise NotImplementedError(_TRACED_TODO)
-        shl, _ = _exhaustion_guard(shl, op_types, keys,
-                                   max_shards=max_shards, seed=seed)
+        in_place = _in_place or _has_static_ceiling(shl)
+        if in_place:
+            from repro_torch.core import rebalance_traced as rbt
+            shl, _ = rbt.exhaustion_guard_traced(
+                shl, op_types, keys, max_shards=max_shards, seed=seed)
+        else:
+            shl, _ = _exhaustion_guard(shl, op_types, keys,
+                                       max_shards=max_shards, seed=seed)
     S, B = shl.n_shards, keys.shape[0]
     sid = route(shl.boundaries, keys)
     perm = torch.argsort(sid, stable=True)
@@ -669,7 +680,11 @@ def apply_ops_sharded(shl: ShardedSkipList, op_types, keys, vals, *,
         return shl, torch.zeros((0,), dtype=torch.int32, device=dev)
     out, results = _apply_segment_passes(shl, op_types, keys, vals, perm,
                                          starts, lens)
-    if rebalance:
+    if in_place:
+        out, _ = rbt.watermark_rebalance_traced(
+            out, high_water=high_water, low_water=low_water,
+            max_shards=max_shards, seed=seed)
+    elif rebalance:
         out, _ = _watermark_rebalance(out, high_water=high_water,
                                       low_water=low_water,
                                       max_shards=max_shards, seed=seed)

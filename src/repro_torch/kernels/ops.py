@@ -1,11 +1,11 @@
 """Batched point lookup through the traversal kernels (port of ``repro.kernels.ops``).
 
 ``search_kernel`` runs K1 (foresight) or K2 (base) on a monolithic state,
-and the sharded kernels on a ``ShardedSkipList``
-(``search_kernel_sharded``), and resolves ``found`` / ``vals``; on a
-fat-layout state every launch ends in K9 and the values come from
-``fat_vals`` at the element-flat id.  The monolithic kernels take any
-batch length, so nothing is padded there.
+the sharded kernels on a ``ShardedSkipList`` (``search_kernel_sharded``)
+and K10 on a mesh index (``kernels.mesh_launch``), and resolves
+``found`` / ``vals``; on a fat-layout state every launch ends in K9 and
+the values come from ``fat_vals`` at the element-flat id.  The monolithic
+kernels take any batch length, so nothing is padded there.
 
 Size limits: the reference refuses a table, or a per-shard tile, over its
 12 MiB VMEM budget; the kernels here read the index straight from device
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import sharded as shd
+from repro_torch.core.mesh_index import MeshShardedIndex
 from repro_torch.core.sharded import ShardedSkipList
 from repro_torch.core.skiplist import NULL_VAL, SkipListState, sorted_live_kv
 from repro_torch.kernels import foresight_traverse as ft
@@ -381,22 +382,31 @@ def search_kernel_sharded(shl: ShardedSkipList, queries, *,
 
 
 def search_kernel(state, queries: torch.Tensor, *, max_steps: int = 0,
-                  cluster: bool = True, k_shards: int = 0
+                  cluster: bool = True, k_shards: int = 0, mesh=None
                   ) -> KernelSearchResult:
-    """Kernel-backed batched search: a ``ShardedSkipList`` takes
-    ``search_kernel_sharded``, a monolithic state K1 / K2.
+    """Kernel-backed batched search: a ``MeshShardedIndex`` takes
+    ``mesh_launch.search_kernel_mesh`` (``mesh`` required: the index mesh
+    it was partitioned for; ``queries`` is this rank's chunk), a
+    ``ShardedSkipList`` ``search_kernel_sharded``, a monolithic state
+    K1 / K2.
 
     Runs on the state's device: the CUDA kernels there, the plain versions
-    on the CPU.  Mesh states are not ported yet.
+    on the CPU.  Any other state (``repro``'s among them) is refused.
     """
+    if isinstance(state, MeshShardedIndex):
+        if mesh is None:
+            raise ValueError("search_kernel on a MeshShardedIndex needs "
+                             "mesh= (see launch.mesh.make_index_mesh)")
+        from repro_torch.kernels.mesh_launch import search_kernel_mesh
+        return search_kernel_mesh(state, queries, mesh=mesh,
+                                  max_steps=max_steps, k_shards=k_shards)
     if isinstance(state, ShardedSkipList):
         return search_kernel_sharded(state, queries, max_steps=max_steps,
                                      cluster=cluster, k_shards=k_shards)
     if not isinstance(state, SkipListState):
-        raise NotImplementedError(
-            f"search_kernel on {type(state).__name__}: mesh states are not "
-            "ported yet (ROADMAP.md Queue 1, item 11, mesh-distributed "
-            "index)")
+        raise TypeError(
+            f"search_kernel on {type(state).__name__}: not a repro_torch "
+            "state (repro's arrays convert through repro_torch.convert)")
     check_index_range(state.levels, state.capacity, 1, state.node_width)
     q = torch.as_tensor(queries, device=state.device).to(torch.int32)
     if state.foresight:

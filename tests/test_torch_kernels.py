@@ -131,7 +131,7 @@ def test_search_kernel_rejects_sharded_states():
     keys = jnp.arange(1, 200, dtype=jnp.int32)
     sharded = shd.build_sharded(keys, keys, n_shards=2, levels=6)
     q = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="not a repro_torch state"):
         tops.search_kernel(sharded, q)
     arrays = {k: np.asarray(v) for k, v in sharded.shards._asdict().items()
               if v is not None}

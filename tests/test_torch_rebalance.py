@@ -4,10 +4,10 @@ repro's, bit for bit, on the CPU.
 Twins of ``tests/test_rebalance.py``: every state array (``rng`` and the
 boundaries included), every result and the shard count equal the
 reference's after each operation, and the reference test's own checks
-hold on the port.  Its jit case and the padded-ceiling cases belong to
-the traced rebalancer (ROADMAP item 7): on such a state the port raises
-``NotImplementedError``, tested here.  The seeded fuzz differential runs
-at a small size.
+hold on the port.  Its jit case and the padded-ceiling cases are the
+in-place passes' (``tests/test_torch_rebalance_traced.py``); the
+static-ceiling case here holds them to the reference's eager dispatch.
+The seeded fuzz differential runs at a small size.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -208,25 +208,30 @@ def test_empty_sharded_grows_under_rebalance():
 
 def test_static_ceiling_rebalance_is_not_ported():
     """A state whose last boundary is KEY_MAX (every empty_sharded with
-    S > 1) rebalances in the reference through core.rebalance_traced;
-    the port raises instead of taking the host path."""
+    S > 1) rebalances in place through core.rebalance_traced, in the
+    reference and the port alike: equal arrays, results and stats.  (The
+    name predates the port of those in-place passes.)"""
+    ref = shd.empty_sharded(n_shards=4, capacity=16, levels=6)
     shl = tsh.empty_sharded(n_shards=4, capacity=16, levels=6, device="cpu")
     assert tsh._has_static_ceiling(shl)
-    assert shd._has_static_ceiling(shd.empty_sharded(n_shards=4, capacity=16,
-                                                     levels=6))
+    assert shd._has_static_ceiling(ref)
     kk = np.arange(1, 30, 3, dtype=np.int32)
     ops = np.full(kk.shape, tsl.OP_INSERT, np.int32)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsh.rebalance(shl)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsh.apply_ops_sharded(shl, ops, kk, kk, rebalance=True)
+    shl2, stats = tsh.rebalance(shl)
+    ref2, stats_r = shd.rebalance(ref)
+    assert stats == (int(stats_r.splits), int(stats_r.merges))
+    _assert_same(shl2, ref2)
+    ref3, shl3, res = _apply(ref, shl, ops, kk, kk, rebalance=True)
+    assert (res == 1).all() and shl3.n_shards == 4
     # a built state whose last shard came out empty carries one too
-    _, built, _, _, _ = _build(n=10, n_shards=8, levels=6)
+    ref_b, built, _, _, _ = _build(n=10, n_shards=8, levels=6)
     assert tsh._has_static_ceiling(built)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsh.rebalance(built)
-    out, res = tsh.apply_ops_sharded(shl, ops, kk, kk)     # no rebalance
-    assert (res.numpy() == 1).all()
+    built2, stats = tsh.rebalance(built)
+    ref_b2, stats_r = shd.rebalance(ref_b)
+    assert stats == (int(stats_r.splits), int(stats_r.merges))
+    _assert_same(built2, ref_b2)
+    _, _, res = _apply(ref, shl, ops, kk, kk)           # no rebalance
+    assert (res == 1).all()
 
 
 def test_exhaustion_guard_equals_repro():
