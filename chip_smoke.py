@@ -59,7 +59,11 @@ Phases, one JSON line each:
    through ``apply_ops_sharded`` against a host oracle, then the sharded
    invariant and an unchanged input; kernel, plain, plan, end-to-end and
    ``torch.searchsorted`` times, bounds from a per-shard replay, path
-   lengths, auto-K and the ``ndist`` histogram;
+   lengths, auto-K and the ``ndist`` histogram.  K3/K4 group their lanes
+   by shard first (``group_by_shard``): the pass is held against its plain
+   version and a stable argsort and timed alone (``group_ms``, beside
+   ``torch.sort``), and the dense walk is also timed without the pass,
+   on the lanes in batch order (``ungrouped_ms``);
 8b. the mesh index at the paper's size, after each sharded variant (its
    stack freed first): ``build_mesh_index(n_devices=1, n_shards=64)``
    equal to ``build_sharded``'s build (fingerprint); both traffics
@@ -87,9 +91,10 @@ Phases, one JSON line each:
    B = 128 (2^19 nodes, capacity 2^21, L = 27), both variants, and B = 8
    (capacity 2^25), foresight, through ``search_kernel`` (K1/K2 + K9);
    B = 128 over S = 64 shards (2^15 node slots a shard, L = 21), both
-   traffics through the dense and clustered paths (K3-K6 + K9, K7) and
-   the eager ``search_sharded``; answers held against the numpy oracle and
-   the scalar phases' answers, every kernel against its plain version,
+   traffics through the dense and clustered paths (K3-K6 + K9, K7; the
+   dense walk grouped, and timed ungrouped as in 8) and the eager
+   ``search_sharded``; answers held against the numpy oracle and the
+   scalar phases' answers, every kernel against its plain version,
    node ids dereferenced into ``fat_vals``; 256 updates of fig3's upd=50%
    mix through ``apply_ops`` (B = 128 monolith) and ``apply_ops_sharded``
    against the host oracle, then ``check_fat_invariant`` and an unchanged
@@ -98,7 +103,8 @@ Phases, one JSON line each:
    plus distinct runs x B x 4 bytes, path lengths, peak memory;
 11. the ``kernels`` line: every ported kernel with its main-path launches
    (K5/K6's include those K10 made), the fat launches of K1-K6 as rows of
-   their own, ``fat_resolve`` and ``search_kernel_mesh`` (K10).
+   their own, ``fat_resolve``, ``search_kernel_mesh`` (K10) and
+   ``group_by_shard`` (its launches on the four sharded main paths).
 
 Then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check, build or launch raises, and the script exits non-zero.
@@ -128,6 +134,7 @@ from repro_torch.core.versioned import VersionedIndex  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import foresight_traverse as ft  # noqa: E402
 from repro_torch.kernels import mesh_launch as ml  # noqa: E402
+from repro_torch.kernels import shard_group as sg  # noqa: E402
 from repro_torch.kernels import validated_traverse as vt  # noqa: E402
 from repro_torch.launch.mesh import make_index_mesh  # noqa: E402
 
@@ -156,6 +163,7 @@ ZIPF_A = 1.2             # benchmarks/common.py:55-60, YCSB-style hot keys
 # benchmarks/common.py:37-38 sizes it; the sharded one keeps S = 64.
 FAT_WIDTHS = (128, 8)
 TRAVERSE_CU = "src/repro_torch/csrc/traverse.cu"
+SHARD_GROUP_CU = "src/repro_torch/csrc/shard_group.cu"
 FT_PY = "src/repro/kernels/foresight_traverse.py"
 KERNELS = {   # name -> (wrapper, plain version, source, TPU kernel replaced)
     "foresight_traverse": (ft.foresight_traverse, ft.foresight_traverse_plain,
@@ -177,6 +185,9 @@ KERNELS = {   # name -> (wrapper, plain version, source, TPU kernel replaced)
     "base_traverse_clustered": (ft.base_traverse_clustered,
                                 ft.base_traverse_clustered_plain,
                                 TRAVERSE_CU, f"{FT_PY}:645"),
+    # K3/K4's grouping pass: a new kernel that stands in for no TPU kernel
+    "group_by_shard": (sg.group_by_shard, sg.group_by_shard_plain,
+                       SHARD_GROUP_CU, "none (a new pass; no TPU kernel)"),
 }
 
 
@@ -873,6 +884,43 @@ def fingerprint(shl: shd.ShardedSkipList) -> list:
     return out
 
 
+def ungrouped_walk(shl: shd.ShardedSkipList, sid: torch.Tensor,
+                   q: torch.Tensor, fat_keys) -> tuple:
+    """The dense walk without grouping: lane i walks (sid[i], q[i]) in
+    batch order and writes at i (``out_idx`` null).
+    Called through ``_build.launch`` directly, to time it beside the
+    grouped wrapper; it counts no launch."""
+    node, key = torch.empty_like(q), torch.empty_like(q)
+    tables = shard_tables(shl)
+    S, L, cap = tables[0].shape[:3]
+    width = 1 if fat_keys is None else fat_keys.shape[-1]
+    symbol = ("foresight_sharded_launch" if shl.foresight
+              else "base_sharded_launch")
+    _build.launch(symbol, *(t.data_ptr() for t in tables),
+                  None if fat_keys is None else fat_keys.data_ptr(),
+                  sid.data_ptr(), None, q.data_ptr(), node.data_ptr(),
+                  key.data_ptr(), q.numel(), S, L, cap, width,
+                  ft.traversal_bound(L, cap),
+                  torch.cuda.current_stream().cuda_stream)
+    return node, key
+
+
+def check_grouping(sid: torch.Tensor, q: torch.Tensor, what: str) -> int:
+    """``group_by_shard`` on the card equals its plain version (perm and
+    offsets), ``perm`` a stable argsort of the bucket ids, and the sorted
+    lanes ``q[perm]`` and ``sid[perm]``; returns the max abs error."""
+    q_s, sid_s, perm, offsets = sg.group_by_shard(sid, q, SHARDS)
+    err = max_abs_err((perm, offsets), sg.group_by_shard_plain(sid, SHARDS))
+    check(err == 0, f"group_by_shard equals its plain version ({what})")
+    mapped = torch.where((sid >= 0) & (sid < SHARDS), sid, SHARDS)
+    check(torch.equal(perm.long(), torch.argsort(mapped, stable=True)),
+          f"group_by_shard's perm is a stable argsort ({what})")
+    check(torch.equal(q_s, q[perm.long()]) and
+          torch.equal(sid_s, sid[perm.long()]),
+          f"group_by_shard's q_sorted and sid_sorted ({what})")
+    return err
+
+
 def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
                       foresight: bool, first: dict, width: int = 1,
                       scalar: dict = None) -> tuple:
@@ -882,8 +930,10 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
     carries the foresight run's answers to the base run.  ``width`` > 1
     builds fat shards (K9 in every launch; the eager ``search_sharded``
     and node ids into ``fat_vals`` are checked too, and ``scalar``, the
-    scalar runs' answers, must give the same found and vals).  Returns
-    (kernels-line rows, answers, the build's fingerprint)."""
+    scalar runs' answers, must give the same found and vals).  The dense
+    kernel is also timed ungrouped (``ungrouped_walk``), and the grouping
+    pass alone.  Returns (kernels-line rows, answers, the build's
+    fingerprint, the grouping pass's row and times)."""
     stage_s, t_stage = {}, time.perf_counter()
     t_phase = t_stage
 
@@ -988,6 +1038,7 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
               "update_us_per_op": update_s / SHARD_UPDATE_OPS * 1e6}
     sorted_keys = torch.from_numpy(keys_np).to(dev)
     rows = {}
+    grouping = {"dense_ms": {}, "ungrouped_ms": {}}
     for name, q in qs.items():
         sid = shd.route(shl.boundaries, q)
         plan = ops.cluster_queries(shl.boundaries, q)
@@ -999,8 +1050,8 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
         t = {}
         for kname, args in ((dense, (sid, q)), (clus, clus_args)):
             wrapper, plain, *_ = KERNELS[kname]
-            err = max_abs_err(wrapper(*shard_tables(shl), *args, fatk),
-                              plain(*shard_tables(shl), *args, fatk))
+            got = wrapper(*shard_tables(shl), *args, fatk)
+            err = max_abs_err(got, plain(*shard_tables(shl), *args, fatk))
             check(err == 0, f"{kname} (width {width}) equals its plain "
                             f"version ({name})")
             t[kname] = dict(
@@ -1009,6 +1060,26 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
                            KERNEL_REPS),
                 plain_ms=time_ms(lambda: plain(*shard_tables(shl), *args,
                                                fatk), PLAIN_REPS))
+            if kname == dense:     # the ungrouped launch, in the same run
+                check(all(torch.equal(a, b) for a, b in zip(
+                    ungrouped_walk(shl, sid, q, fatk), got)),
+                    f"{kname} ungrouped equals grouped ({name})")
+                t[kname]["ungrouped_ms"] = time_ms(
+                    lambda: ungrouped_walk(shl, sid, q, fatk), KERNEL_REPS)
+                # device time by kernel of one call: the pass and the walk
+                t[kname]["profile"] = device_breakdown(
+                    lambda: wrapper(*shard_tables(shl), *args, fatk))
+                t[kname]["ungrouped_profile"] = device_breakdown(
+                    lambda: ungrouped_walk(shl, sid, q, fatk))
+        g_err = check_grouping(sid, q, f"{v} width {width} {name}")
+        group = dict(
+            err=g_err,
+            ms=time_ms(lambda: sg.group_by_shard(sid, q, SHARDS),
+                       KERNEL_REPS),
+            plain_ms=time_ms(lambda: sg.group_by_shard_plain(sid, SHARDS),
+                             PLAIN_REPS),
+            library_ms=time_ms(lambda: torch.sort(sid, stable=True),
+                               KERNEL_REPS))
         lap("kernel_checks_and_timing")
         plan_ms = time_ms(lambda: ops.cluster_queries(shl.boundaries, q),
                           KERNEL_REPS)
@@ -1043,17 +1114,40 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
                 plan.sid_sorted.long(), minlength=SHARDS).max()),
             "plan_ms": plan_ms, "search_kernel_sharded_ms": {
                 "dense": e2e[False], "clustered": e2e[True]},
-            "library_ms": library_ms}
+            "library_ms": library_ms,
+            "group_ms": group["ms"],
+            "group_by_shard_launches": launches["group_by_shard"]}
+        # sid and q read once; q_sorted, sid_sorted, perm and the offsets
+        # written once
+        group_bytes_ms = (B * 4 * 5 + (SHARDS + 2) * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        report[name]["group_by_shard"] = {
+            **group, "bound_ms": group_bytes_ms,
+            "bound_share": group_bytes_ms / group["ms"]}
+        grouping.setdefault("row", {
+            "name": "group_by_shard", "route": "cuda",
+            "source": SHARD_GROUP_CU, "replaces": KERNELS["group_by_shard"][3],
+            "launches": launches["group_by_shard"], "max_abs_err": g_err,
+            "ms": group["ms"], "plain_ms": group["plain_ms"],
+            "bound_ms": group_bytes_ms, "bound_by": "bytes",
+            "library_ms": group["library_ms"]})
+        grouping["row"]["max_abs_err"] = max(grouping["row"]["max_abs_err"],
+                                             g_err)
         for kname in (dense, clus):
             bytes_ms = (fp["distinct_bytes"] + io[kname]) \
                 / HBM_BYTES_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)
+            sector_ms = (fp["sector_bytes"] + io[kname]) \
+                / HBM_BYTES_PER_S * 1e3
             report[name][kname] = {
                 **t[kname], "mops": B / t[kname]["ms"] / 1e3,
-                "bound_ms": bound_ms,
-                "sector_bound_ms": (fp["sector_bytes"] + io[kname])
-                / HBM_BYTES_PER_S * 1e3,
+                "bound_ms": bound_ms, "sector_bound_ms": sector_ms,
                 "bound_share": bound_ms / t[kname]["ms"]}
+            if kname == dense:
+                report[name][kname]["grouped_over_ungrouped_ms"] = \
+                    t[kname]["ms"] / t[kname]["ungrouped_ms"]
+                grouping["dense_ms"][name] = t[kname]["ms"]
+                grouping["ungrouped_ms"][name] = t[kname]["ungrouped_ms"]
             wrapper, plain, source, replaces = KERNELS[kname]
             rows.setdefault(kname, {
                 "name": row(kname), "route": "cuda", "source": source,
@@ -1061,7 +1155,9 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
                 "max_abs_err": t[kname]["err"], "ms": t[kname]["ms"],
                 "plain_ms": t[kname]["plain_ms"], "bound_ms": bound_ms,
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": library_ms})
+                "library_ms": library_ms, "sector_bound_ms": sector_ms,
+                **({"ungrouped_ms": t[kname]["ungrouped_ms"]}
+                   if kname == dense else {})})
     report["clustered_over_dense_ms"] = {
         name: report[name][clus]["ms"] / report[name][dense]["ms"]
         for name in qs}
@@ -1073,7 +1169,7 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
     emit(report)
     del shl, res, sorted_keys, qs, fatk
     torch.cuda.empty_cache()
-    return list(rows.values()), answers, before
+    return list(rows.values()), answers, before, grouping
 
 
 # ---------------------------------------------------------------------------
@@ -1228,22 +1324,27 @@ def mesh_exchange(mx: mi.MeshShardedIndex, q: torch.Tensor, mesh) -> list:
     return mi._exchange_back((rq, rq, rq), perm, starts, did_s, D, group)
 
 
-def device_breakdown(fn, top: int = 10) -> dict:
+def device_breakdown(fn, top: int = 10, tries: int = 3) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the device kernels that
-    ran, by device time (the ``top`` largest), and their sum."""
+    ran, by device time (the ``top`` largest), and their sum.  A profile
+    that recorded no device event (the tracer sometimes loses a cycle's
+    events) is taken again, at most ``tries`` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.device_time_total > 0),
-                  key=lambda r: -r[1])
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.device_time_total > 0),
+                      key=lambda r: -r[1])
+        if rows:
+            break
     return {"device_ms": sum(r[1] for r in rows), "launches":
             sum(r[2] for r in rows), "top": [[k[:80], ms, n]
                                              for k, ms, n in rows[:top]]}
@@ -1368,6 +1469,8 @@ def mesh_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
                         "hits": int(res[name].found.sum()),
                         "mean_path_steps": fp["steps"] / B,
                         "bound_ms": max(bytes_ms, ops_ms),
+                        "sector_bound_ms": (fp["sector_bytes"] + io)
+                        / HBM_BYTES_PER_S * 1e3,
                         "bound_by": ("bytes" if bytes_ms >= ops_ms
                                      else "operations"),
                         "exchange_share": t["exchange_ms"] / t["e2e_ms"],
@@ -1396,6 +1499,7 @@ def mesh_row(reports: list) -> dict:
                                for t in ("uniform", "zipf")),
             "ms": a["ms"], "plain_ms": a["plain_ms"],
             "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+            "sector_bound_ms": a["sector_bound_ms"],
             "library_ms": a["library_ms"], "e2e_ms": a["e2e_ms"],
             "exchange_ms": a["exchange_ms"]}
 
@@ -1733,6 +1837,10 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
         k9_bytes = (int(torch.unique(x).numel()) * 8
                     + fp["distinct_runs"] * width * 4 + q.numel() * 16)
         k9_bytes_ms = k9_bytes / HBM_BYTES_PER_S * 1e3
+        # the same in 32-byte sectors (a run of B = 128 keys is 16 sectors)
+        k9_sectors = (int(torch.unique(x.long() * 8 // 32).numel()) * 32
+                      + fp["distinct_runs"] * -(-width * 4 // 32) * 32
+                      + q.numel() * 16)
         k9_ops_ms = fp["compares"] / SCALAR_OPS_PER_S * 1e3
         report["k9"] = {
             "name": "fat_resolve", "route": "cuda", "source": TRAVERSE_CU,
@@ -1740,7 +1848,8 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
             "max_abs_err": err9, "ms": k9_ms, "plain_ms": k9_plain_ms,
             "bound_ms": max(k9_bytes_ms, k9_ops_ms),
             "bound_by": "bytes" if k9_bytes_ms >= k9_ops_ms
-            else "operations", "library_ms": k9_library_ms}
+            else "operations", "library_ms": k9_library_ms,
+            "sector_bound_ms": k9_sectors / HBM_BYTES_PER_S * 1e3}
         report["k9_share_of_k1_fat"] = k9_ms / kernel_ms
         lap("k9_alone")
     report.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -1782,15 +1891,20 @@ def main() -> None:
     t0 = time.perf_counter()
     stream = (ops_, *host_oracle(keys_np, *ops_[:2]))
     emit({"phase": "sharded_host_oracle", "seconds": time.perf_counter() - t0})
-    answers, scalar_answers, mesh_reports = {}, {}, []
+    answers, scalar_answers, mesh_reports, grouping = {}, {}, [], {}
     for foresight in (True, False):
-        sharded_rows, answers, fp = sharded_full_size(
-            keys_np, traffic, stream, foresight, answers)
+        sharded_rows, answers, fp, grouping[(foresight, 1)] = \
+            sharded_full_size(keys_np, traffic, stream, foresight, answers)
         scalar_answers = scalar_answers or answers
         rows += sharded_rows
         mesh_reports.append(mesh_full_size(keys_np, traffic, stream,
                                            foresight, (fp, answers),
                                            meshes[DEVICE]))
+    group_row = grouping[(True, 1)]["row"]
+    group_row["launches"] += grouping[(False, 1)]["row"]["launches"]
+    group_row["max_abs_err"] = max(group_row["max_abs_err"],
+                                   grouping[(False, 1)]["row"]["max_abs_err"])
+    rows.append(group_row)
     by_name = {r["name"]: r for r in rows}
     for r in mesh_reports:          # K10's K5/K6 launches count there too
         for name in KERNELS:
@@ -1806,7 +1920,15 @@ def main() -> None:
           "sharded_over_monolithic_ms": {
               v: by_name[f"{v}_traverse_sharded"]["ms"]
               / by_name[f"{v}_traverse"]["ms"]
-              for v in ("foresight", "base")}})
+              for v in ("foresight", "base")},
+          "dense_foresight_over_base_ms": {
+              traffic_name: {
+                  "grouped": grouping[(True, 1)]["dense_ms"][traffic_name]
+                  / grouping[(False, 1)]["dense_ms"][traffic_name],
+                  "ungrouped":
+                  grouping[(True, 1)]["ungrouped_ms"][traffic_name]
+                  / grouping[(False, 1)]["ungrouped_ms"][traffic_name]}
+              for traffic_name in traffic}})
     for name in KERNELS:
         check(by_name[name]["launches"] > 0, f"{name} launched on its path")
 
@@ -1817,10 +1939,14 @@ def main() -> None:
     fat_rows = [r["row"] for r in fat.values()]
     answers = {}
     for foresight in (True, False):
-        sharded_rows, answers, _ = sharded_full_size(
-            keys_np, traffic, stream, foresight, answers, width=128,
-            scalar=scalar_answers)
+        sharded_rows, answers, _, grouping[(foresight, 128)] = \
+            sharded_full_size(keys_np, traffic, stream, foresight, answers,
+                              width=128, scalar=scalar_answers)
         fat_rows += sharded_rows
+        g = grouping[(foresight, 128)]["row"]    # the pass's fat-path runs
+        group_row["launches"] += g["launches"]
+        group_row["max_abs_err"] = max(group_row["max_abs_err"],
+                                       g["max_abs_err"])
     k9 = fat[(128, True)]["k9"]
     k9["launches"] = sum(r["launches"] for r in fat_rows)
     check(k9["launches"] > 0, "fat_resolve (K9) launched on the fat paths")

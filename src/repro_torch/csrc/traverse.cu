@@ -4,8 +4,10 @@
 //   foresight_traverse_launch  -> foresight_traverse (_foresight_kernel), K1
 //   base_traverse_launch       -> base_traverse (_base_kernel), K2
 //   foresight_sharded_launch   -> foresight_traverse_sharded
-//                                 (_foresight_sharded_kernel), K3
-//   base_sharded_launch        -> base_traverse_sharded (_base_sharded_kernel), K4
+//                                 (_foresight_sharded_kernel), K3, on lanes
+//                                 grouped by shard_group.cu
+//   base_sharded_launch        -> base_traverse_sharded (_base_sharded_kernel),
+//                                 K4, the same
 //   foresight_clustered_launch -> foresight_traverse_clustered
 //                                 (_foresight_clustered_kernel), K5
 //   base_clustered_launch      -> base_traverse_clustered
@@ -25,14 +27,25 @@
 // number of its own steps.  The TPU grids exist to stream index tiles
 // through VMEM: (B/128) x S shard tiles for K3/K4, the (B/128) x K tiles a
 // clustered block names for K5/K6.  Here the index stays in device memory
-// and a thread reads its own shard's records directly, so a lane costs the
-// same whatever the grid; nothing is staged in shared memory.  K5/K6 keep
-// the plan only to decide which lanes are served: lane i of block i/128 is
-// served iff sid[i] is among block_sids[j, k < ndist[j]]; an unserved lane
-// (or a shard id outside [0, S)) writes (0, 0), the reference's _init.
-// Sorting the batch by shard (the clustered plan) puts lanes of one shard in
-// the same warps, which can only help through L2 and sector locality on the
-// shard's shared upper levels.
+// and a thread reads its own shard's records directly; nothing is staged in
+// shared memory.  K5/K6 keep the plan only to decide which lanes are
+// served: lane i of block i/128 is served iff sid[i] is among block_sids[j,
+// k < ndist[j]]; an unserved lane (or a shard id outside [0, S)) writes
+// (0, 0), the reference's _init.
+//
+// The dense K3/K4 walk grouped lanes.  Lanes are routed by key range, so in
+// batch order a warp's 32 lanes hit up to 32 shards and every warp walks
+// 32 shards' upper levels, each a separate chain of misses.  The wrapper
+// first runs group_by_shard (shard_group.cu), a counting sort of the lanes
+// by shard, and the walk then reads (sid_sorted[i], q_sorted[i]) coalesced
+// and writes its result at out_idx[i] (the lane's batch index), so the
+// results come back in lane order in the walk's own store.  A warp then
+// walks one shard (two at a bucket's edge), and its lanes' first steps hit
+// the same records of that shard's upper levels, which L1 and L2 serve
+// after the first miss.  What still bounds the grouped walk is the rest of
+// each lane's chain of dependent misses below the shared levels.  out_idx
+// == nullptr keeps lane i's result at i (K5/K6, and the ungrouped launch
+// that is timed beside the grouped one).
 //
 // The foresight step is ONE 8-byte load of the (next_ptr, next_key) record,
 // an int2 through the read-only path: the paper's fused load.  The base step
@@ -170,12 +183,14 @@ base_kernel(const int* __restrict__ nxt, const int* __restrict__ keys,
 }
 
 // K3 and K5: bsids == nullptr is the dense K3, every in-range lane served.
+// Lane i's result goes to out_idx[i], or to i when out_idx is null.
 __global__ void __launch_bounds__(kBlock)
 foresight_sharded_kernel(const int2* __restrict__ fused,
                          const int* __restrict__ fat,
                          const int* __restrict__ bsids,
                          const int* __restrict__ ndist,
                          const int* __restrict__ sids,
+                         const int* __restrict__ out_idx,
                          const int* __restrict__ queries,
                          int* __restrict__ node, int* __restrict__ key,
                          long long batch, int shards, int k_slots, int levels,
@@ -194,8 +209,9 @@ foresight_sharded_kernel(const int2* __restrict__ fused,
       r = fat_resolve(fat + (size_t)s * (size_t)cap * (size_t)width, width,
                       q, x, r);
   }
-  node[i] = r.x;
-  key[i] = r.y;
+  const long long o = out_idx == nullptr ? i : (long long)__ldg(out_idx + i);
+  node[o] = r.x;
+  key[o] = r.y;
 }
 
 // K4 and K6: bsids == nullptr is the dense K4.
@@ -205,6 +221,7 @@ base_sharded_kernel(const int* __restrict__ nxt, const int* __restrict__ keys,
                     const int* __restrict__ bsids,
                     const int* __restrict__ ndist,
                     const int* __restrict__ sids,
+                    const int* __restrict__ out_idx,
                     const int* __restrict__ queries, int* __restrict__ node,
                     int* __restrict__ key, long long batch, int shards,
                     int k_slots, int levels, long long cap, int width,
@@ -224,8 +241,9 @@ base_sharded_kernel(const int* __restrict__ nxt, const int* __restrict__ keys,
       r = fat_resolve(fat + (size_t)s * (size_t)cap * (size_t)width, width,
                       q, x, r);
   }
-  node[i] = r.x;
-  key[i] = r.y;
+  const long long o = out_idx == nullptr ? i : (long long)__ldg(out_idx + i);
+  node[o] = r.x;
+  key[o] = r.y;
 }
 
 // K9 alone, from given final predecessors xs over the level-0 records of a
@@ -275,28 +293,32 @@ int base_traverse_launch(const void* nxt, const void* keys, const void* fat,
   return (int)cudaGetLastError();
 }
 
+// The dense K3 / K4: lane i walks (sids[i], queries[i]) and writes its
+// result at out_idx[i]; out_idx may be null (lane i writes at i).
 int foresight_sharded_launch(const void* fused, const void* fat,
-                             const void* sids, const void* queries,
-                             void* node, void* key, long long batch,
-                             int shards, int levels, long long cap, int width,
-                             long long max_steps, void* stream) {
+                             const void* sids, const void* out_idx,
+                             const void* queries, void* node, void* key,
+                             long long batch, int shards, int levels,
+                             long long cap, int width, long long max_steps,
+                             void* stream) {
   foresight_sharded_kernel<<<grid_for(batch), kBlock, 0,
                              (cudaStream_t)stream>>>(
       (const int2*)fused, (const int*)fat, nullptr, nullptr,
-      (const int*)sids, (const int*)queries, (int*)node, (int*)key, batch,
-      shards, 0, levels, cap, width, max_steps);
+      (const int*)sids, (const int*)out_idx, (const int*)queries, (int*)node,
+      (int*)key, batch, shards, 0, levels, cap, width, max_steps);
   return (int)cudaGetLastError();
 }
 
 int base_sharded_launch(const void* nxt, const void* keys, const void* fat,
-                        const void* sids, const void* queries, void* node,
-                        void* key, long long batch, int shards, int levels,
+                        const void* sids, const void* out_idx,
+                        const void* queries, void* node, void* key,
+                        long long batch, int shards, int levels,
                         long long cap, int width, long long max_steps,
                         void* stream) {
   base_sharded_kernel<<<grid_for(batch), kBlock, 0, (cudaStream_t)stream>>>(
       (const int*)nxt, (const int*)keys, (const int*)fat, nullptr, nullptr,
-      (const int*)sids, (const int*)queries, (int*)node, (int*)key, batch,
-      shards, 0, levels, cap, width, max_steps);
+      (const int*)sids, (const int*)out_idx, (const int*)queries, (int*)node,
+      (int*)key, batch, shards, 0, levels, cap, width, max_steps);
   return (int)cudaGetLastError();
 }
 
@@ -310,8 +332,9 @@ int foresight_clustered_launch(const void* fused, const void* fat,
   foresight_sharded_kernel<<<grid_for(batch), kBlock, 0,
                              (cudaStream_t)stream>>>(
       (const int2*)fused, (const int*)fat, (const int*)bsids,
-      (const int*)ndist, (const int*)sids, (const int*)queries, (int*)node,
-      (int*)key, batch, shards, k_slots, levels, cap, width, max_steps);
+      (const int*)ndist, (const int*)sids, nullptr, (const int*)queries,
+      (int*)node, (int*)key, batch, shards, k_slots, levels, cap, width,
+      max_steps);
   return (int)cudaGetLastError();
 }
 
@@ -323,8 +346,9 @@ int base_clustered_launch(const void* nxt, const void* keys, const void* fat,
                           long long max_steps, void* stream) {
   base_sharded_kernel<<<grid_for(batch), kBlock, 0, (cudaStream_t)stream>>>(
       (const int*)nxt, (const int*)keys, (const int*)fat, (const int*)bsids,
-      (const int*)ndist, (const int*)sids, (const int*)queries, (int*)node,
-      (int*)key, batch, shards, k_slots, levels, cap, width, max_steps);
+      (const int*)ndist, (const int*)sids, nullptr, (const int*)queries,
+      (int*)node, (int*)key, batch, shards, k_slots, levels, cap, width,
+      max_steps);
   return (int)cudaGetLastError();
 }
 

@@ -27,10 +27,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# Every launcher takes its input pointers (queries last), the node and key
-# output pointers, the batch, its sizes, max_steps and the stream.  Every
+# Every walk launcher takes its input pointers (queries last), the node and
+# key output pointers, the batch, its sizes, max_steps and the stream.  Every
 # pointer is c_void_p, or ctypes would cut it to 32 bits; ``fat`` may be
-# null (the scalar layout).
+# null (the scalar layout), and so may the dense walks' ``out_idx``.
 _SIGNATURES = {
     # fused, fat, queries | levels, cap, width
     "foresight_traverse_launch": [_P] * 5 + [_LL, _I, _LL, _I, _LL, _P],
@@ -38,10 +38,11 @@ _SIGNATURES = {
     "base_traverse_launch": [_P] * 6 + [_LL, _I, _LL, _I, _LL, _P],
     # fused, auth_keys, queries | levels, cap
     "validated_traverse_launch": [_P] * 5 + [_LL, _I, _LL, _LL, _P],
-    # fused, fat, shard_ids, queries | shards, levels, cap, width
-    "foresight_sharded_launch": [_P] * 6 + [_LL, _I, _I, _LL, _I, _LL, _P],
-    # nxt, keys, fat, shard_ids, queries | shards, levels, cap, width
-    "base_sharded_launch": [_P] * 7 + [_LL, _I, _I, _LL, _I, _LL, _P],
+    # fused, fat, shard_ids, out_idx, queries | shards, levels, cap, width
+    "foresight_sharded_launch": [_P] * 7 + [_LL, _I, _I, _LL, _I, _LL, _P],
+    # nxt, keys, fat, shard_ids, out_idx, queries | shards, levels, cap,
+    # width
+    "base_sharded_launch": [_P] * 8 + [_LL, _I, _I, _LL, _I, _LL, _P],
     # fused, fat, block_sids, ndist, shard_ids, queries | shards, K,
     # levels, cap, width
     "foresight_clustered_launch": [_P] * 8 + [_LL, _I, _I, _I, _LL, _I, _LL,
@@ -51,6 +52,9 @@ _SIGNATURES = {
     "base_clustered_launch": [_P] * 9 + [_LL, _I, _I, _I, _LL, _I, _LL, _P],
     # fused, fat, x, queries, node, key | batch, width (no max_steps)
     "fat_resolve_launch": [_P] * 6 + [_LL, _I, _P],
+    # shard_ids, queries, counts, scanned, offsets, q_sorted, sid_sorted,
+    # perm | batch, shards (no max_steps)
+    "group_by_shard_launch": [_P] * 8 + [_LL, _I, _P],
 }
 
 

@@ -8,7 +8,9 @@ Port of the kernels of ``repro.kernels.foresight_traverse``:
   then the pointee's key; the paper's baseline.
 * ``foresight_traverse_sharded`` / ``base_traverse_sharded`` (K3 / K4):
   the same walks over stacked shard tables, each lane in the shard its
-  ``shard_ids`` entry names.
+  ``shard_ids`` entry names.  On the card they first group the lanes by
+  shard (``kernels.shard_group.group_by_shard``, a CUDA counting sort),
+  walk them in that order and store each result at its lane's index.
 * ``foresight_traverse_clustered`` / ``base_traverse_clustered`` (K5 /
   K6): K3 / K4 on a shard-sorted batch of 128-lane blocks (``QBLK``),
   serving lane ``i`` of block ``j`` only if its shard is one of the
@@ -25,7 +27,8 @@ runs its plain version on CPU tensors; any other device raises.  Each has a
 ``launches`` counter that goes up by one per kernel launch, and nowhere
 else, so a run can show its lookups went through the kernel; a launch
 with ``fat_keys`` also counts in the wrapper's ``fat_launches`` and in
-``fat_resolve.launches``, since K9 ran inside it.
+``fat_resolve.launches``, since K9 ran inside it.  K3 / K4's grouping pass
+counts in ``group_by_shard.launches``.
 
 Semantics are those of the reference's ``_traverse_loop``: every query
 starts at the head on level ``L-1`` and advances or descends once per
@@ -44,6 +47,7 @@ from typing import Callable, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.shard_group import check_group_cap, launch_grouping
 
 QBLK = 128     # query lanes per block of the clustered launch plan
 _KEY_MAX = 2**31 - 1
@@ -281,29 +285,36 @@ def _fat_table(name: str, fat_keys, lead: Tuple[int, ...]):
 
 
 def launch_walk(wrapper, symbol: str, inputs, sizes, max_steps: int,
-                fat_keys=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                fat_keys=None, grouped=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``symbol`` (a ``csrc`` launcher) on one thread per query.
 
     Its C arguments are the pointers of ``inputs`` (queries last; ``None``
     passes a null pointer), of the outputs node and key, then the batch,
-    ``sizes`` and ``max_steps``, and the current stream.  Counts the
-    launch on ``wrapper`` and, when ``fat_keys`` is set (K9 runs inside),
-    in ``wrapper.fat_launches`` and ``fat_resolve.launches``; an empty
-    batch launches nothing.
+    ``sizes`` and ``max_steps``, and the current stream.  ``grouped``, if
+    given, is called with that stream first and returns the inputs to
+    launch with instead (K3 / K4 group their lanes by shard there).  Counts
+    the launch on ``wrapper`` and, when ``fat_keys`` is set (K9 runs
+    inside), in ``wrapper.fat_launches`` and ``fat_resolve.launches``; an
+    empty batch launches nothing.
     """
     q = inputs[-1]
-    node, key = torch.empty_like(q), torch.empty_like(q)
-    if q.numel():
-        with torch.cuda.device(q.device):
-            _build.launch(symbol,
-                          *(None if t is None else t.data_ptr()
-                            for t in inputs),
-                          node.data_ptr(), key.data_ptr(), q.numel(), *sizes,
-                          max_steps, torch.cuda.current_stream().cuda_stream)
-        wrapper.launches += 1
-        if fat_keys is not None:
-            wrapper.fat_launches += 1
-            fat_resolve.launches += 1
+    if not q.numel():
+        return torch.empty_like(q), torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if grouped is not None:      # first, so the device starts sooner
+            inputs = grouped(stream)
+        node, key = torch.empty_like(q), torch.empty_like(q)
+        _build.launch(symbol,
+                      *(None if t is None else t.data_ptr()
+                        for t in inputs),
+                      node.data_ptr(), key.data_ptr(), q.numel(), *sizes,
+                      max_steps, stream)
+    wrapper.launches += 1
+    if fat_keys is not None:
+        wrapper.fat_launches += 1
+        fat_resolve.launches += 1
     return node, key
 
 
@@ -409,6 +420,17 @@ def _check_plan(name: str, n_shards: int, block_sids: torch.Tensor,
                          "boundaries")
 
 
+def _grouped_lanes(tables, sid, q, S: int):
+    """K3 / K4's launch inputs on grouped lanes: given the stream, run
+    ``group_by_shard``'s kernel and return ``tables`` + (sid_sorted, perm
+    as ``out_idx``, q_sorted), so lane ``i`` of the walk writes its result
+    at ``perm[i]``, its batch index."""
+    def grouped(stream):
+        q_s, sid_s, perm, _ = launch_grouping(sid, q, S, stream)
+        return (*tables, sid_s, perm, q_s)
+    return grouped
+
+
 def foresight_traverse_sharded(fused: torch.Tensor, shard_ids: torch.Tensor,
                                queries: torch.Tensor, fat_keys=None, *,
                                max_steps: int = 0
@@ -416,9 +438,12 @@ def foresight_traverse_sharded(fused: torch.Tensor, shard_ids: torch.Tensor,
     """Dense sharded foresight search (K3) over ``fused [S, L, cap, 2]``.
 
     Lane ``i`` walks shard ``shard_ids[i]``; returns (node [B], cand_key
-    [B]) with shard-local node ids (element-flat with ``fat_keys [S, cap,
-    B]``, K9).  ``max_steps`` 0 means ``traversal_bound(L, cap)`` of one
-    shard.
+    [B]) in lane order, with shard-local node ids (element-flat with
+    ``fat_keys [S, cap, B]``, K9).  ``max_steps`` 0 means
+    ``traversal_bound(L, cap)`` of one shard.  On the card the lanes are
+    grouped by shard first (``group_by_shard``'s kernel, which takes S up
+    to ``MAX_GROUP_SHARDS``, raising ``ValueError`` above it) and walked in
+    that order.
     """
     S, L, cap, _ = fused.shape
     q, sid = queries.to(torch.int32), shard_ids.to(torch.int32)
@@ -429,10 +454,12 @@ def foresight_traverse_sharded(fused: torch.Tensor, shard_ids: torch.Tensor,
                                                 max_steps=max_steps)
     _cuda_tables("foresight_traverse_sharded", q, fused, sid, fat_keys=fat,
                  fused=fused)
+    check_group_cap("foresight_traverse_sharded", S)
     return launch_walk(foresight_traverse_sharded,
-                       "foresight_sharded_launch", (fused, fat, sid, q),
+                       "foresight_sharded_launch", (fused, fat, sid, None, q),
                        (S, L, cap, _width(fat)),
-                       max_steps or traversal_bound(L, cap), fat)
+                       max_steps or traversal_bound(L, cap), fat,
+                       _grouped_lanes((fused, fat), sid, q, S))
 
 
 def base_traverse_sharded(nxt: torch.Tensor, keys: torch.Tensor,
@@ -440,7 +467,7 @@ def base_traverse_sharded(nxt: torch.Tensor, keys: torch.Tensor,
                           fat_keys=None, *, max_steps: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense sharded base search (K4) over ``nxt [S, L, cap]`` and
-    ``keys [S, cap]``."""
+    ``keys [S, cap]``; lanes grouped on the card as in K3."""
     S, L, cap = nxt.shape
     q, sid = queries.to(torch.int32), shard_ids.to(torch.int32)
     _check_lanes("base_traverse_sharded", sid, q)
@@ -449,9 +476,12 @@ def base_traverse_sharded(nxt: torch.Tensor, keys: torch.Tensor,
         return base_traverse_sharded_plain(nxt, keys, sid, q, fat,
                                            max_steps=max_steps)
     _cuda_tables("base_traverse_sharded", q, nxt, keys, sid, fat_keys=fat)
+    check_group_cap("base_traverse_sharded", S)
     return launch_walk(base_traverse_sharded, "base_sharded_launch",
-                       (nxt, keys, fat, sid, q), (S, L, cap, _width(fat)),
-                       max_steps or traversal_bound(L, cap), fat)
+                       (nxt, keys, fat, sid, None, q),
+                       (S, L, cap, _width(fat)),
+                       max_steps or traversal_bound(L, cap), fat,
+                       _grouped_lanes((nxt, keys, fat), sid, q, S))
 
 
 def foresight_traverse_clustered(fused: torch.Tensor,

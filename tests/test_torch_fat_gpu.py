@@ -1,6 +1,8 @@
 """The fat-node layout on the card: K1-K6 with the K9 postlude, and K9 alone,
 held against their plain versions, and fat builds and updates against the
-CPU, at node widths 6 (not a multiple of 4: the scalar tail), 8 and 128.
+CPU, at node widths 6 (not a multiple of 4: the scalar tail), 8 and 128;
+the grouped dense walks (K3/K4 after ``group_by_shard``) with K9 on lane
+sets grouped every way.
 
 Needs a CUDA card, nvcc and no JAX; every test here is marked ``gpu`` and
 skips without a card.  Run on a card machine with
@@ -15,6 +17,7 @@ from repro_torch.core import sharded as tsh
 from repro_torch.core import skiplist as tsl
 from repro_torch.kernels import foresight_traverse as tft
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import shard_group as tsg
 
 pytestmark = pytest.mark.gpu
 WIDTHS = [6, 8, 128]
@@ -214,3 +217,37 @@ def test_fat_sharded_rebalance_on_card_equals_cpu(cuda, nw):
     assert torch.equal(got.boundaries.cpu(), want.boundaries)
     _same(tsh.range_scan_sharded(got, 0, SPAN, 200),
           tsh.range_scan_sharded(want, 0, SPAN, 200))
+
+
+@pytest.mark.parametrize("traffic",
+                         ["half_hit", "one_shard", "zipf", "out_of_range"])
+@pytest.mark.parametrize("foresight", [True, False])
+@pytest.mark.parametrize("nw", [8, 128])
+def test_grouped_k3_k4_with_k9_equal_plain_and_cpu_on_card(cuda, nw,
+                                                           foresight,
+                                                           traffic):
+    shl, keys, rng = _sharded(cuda, nw, foresight, 9)
+    cpu, _, _ = _sharded("cpu", nw, foresight, 9)
+    tables, fat = tops._tables(shl), shl.shards.fat_keys
+    if traffic == "zipf":
+        q = keys[(rng.zipf(1.2, 2049) - 1) % len(keys)]
+    elif traffic == "one_shard":
+        q = rng.choice(keys[keys < int(shl.boundaries[1])], 2049)
+    else:
+        q = _half_hit(keys, rng, 2047)
+    q = torch.from_numpy(q.astype(np.int32)).to(cuda)
+    sid = tsh.route(shl.boundaries, q)
+    if traffic == "out_of_range":
+        sid[::5] = -1
+        sid[2::5] = shl.n_shards
+    dense, dense_plain = ((tft.foresight_traverse_sharded,
+                           tft.foresight_traverse_sharded_plain) if foresight
+                          else (tft.base_traverse_sharded,
+                                tft.base_traverse_sharded_plain))
+    before = dense.fat_launches, tsg.group_by_shard.launches
+    got = dense(*tables, sid, q, fat)
+    assert (dense.fat_launches, tsg.group_by_shard.launches) == (
+        before[0] + 1, before[1] + 1)
+    _same(got, dense_plain(*tables, sid, q, fat))
+    _same(got, dense_plain(*tops._tables(cpu), sid.cpu(), q.cpu(),
+                           cpu.shards.fat_keys))

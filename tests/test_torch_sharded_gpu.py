@@ -1,5 +1,6 @@
 """The port's sharded CUDA kernels (K3-K6) and K7 on the card, held against
-their plain versions and the CPU.
+their plain versions and the CPU; and the grouping pass of K3/K4
+(``group_by_shard``) against its plain version and a stable argsort.
 
 Needs a CUDA card, nvcc and no JAX; every test here is marked ``gpu`` and
 skips without a card.  Run on a card machine with
@@ -13,6 +14,7 @@ import torch
 from repro_torch.core import sharded as tsh
 from repro_torch.kernels import foresight_traverse as tft
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import shard_group as tsg
 
 pytestmark = pytest.mark.gpu
 QBLK = tft.QBLK
@@ -165,3 +167,100 @@ def test_empty_batch_launches_nothing(cuda):
     node, key = tft.foresight_traverse_sharded(shl.shards.fused, q, q)
     assert node.shape == key.shape == (0,)
     assert tft.foresight_traverse_sharded.launches == before
+
+
+def _shard_ids(traffic, batch, n_shards, seed):
+    """Lane shard ids: uniform, all in one shard, Zipf(1.2) by rank (shard 0
+    hottest), or uniform over [-1, S] (ids -1 and S are outside)."""
+    rng = np.random.default_rng(seed)
+    if traffic == "uniform":
+        sid = rng.integers(0, n_shards, batch)
+    elif traffic == "one_shard":
+        sid = np.full(batch, n_shards // 2)
+    elif traffic == "zipf":
+        sid = (rng.zipf(1.2, batch) - 1) % n_shards
+    else:
+        sid = rng.integers(-1, n_shards + 1, batch)
+    return sid.astype(np.int32)
+
+
+def _check_grouping(cuda, sid_np, n_shards, seed=0):
+    sid = torch.from_numpy(sid_np).to(cuda)
+    q = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 1 << 30, sid_np.shape[0]).astype(np.int32)).to(cuda)
+    before = tsg.group_by_shard.launches
+    q_s, sid_s, perm, offsets = tsg.group_by_shard(sid, q, n_shards)
+    assert tsg.group_by_shard.launches == before + 1
+    torch.cuda.synchronize()
+    _check((perm, offsets), tsg.group_by_shard_plain(sid, n_shards))
+    mapped = torch.where((sid >= 0) & (sid < n_shards), sid, n_shards)
+    assert torch.equal(perm.long(), torch.argsort(mapped, stable=True))
+    assert torch.equal(q_s, q[perm.long()])
+    assert torch.equal(sid_s, sid[perm.long()])
+    _check((q_s, sid_s, perm, offsets),
+           tsg.group_by_shard(sid, q, n_shards),
+           tsg.group_by_shard(sid.cpu(), q.cpu(), n_shards))
+
+
+@pytest.mark.parametrize("traffic",
+                         ["uniform", "one_shard", "zipf", "out_of_range"])
+@pytest.mark.parametrize("batch", [1, 37, 2047, 2048, 2049, 2**20])
+@pytest.mark.parametrize("n_shards", [1, 8, 64, 1024])
+def test_group_by_shard_equals_plain_and_stable_argsort_on_card(
+        cuda, n_shards, batch, traffic):
+    _check_grouping(cuda, _shard_ids(traffic, batch, n_shards, batch),
+                    n_shards, batch)
+
+
+def test_group_by_shard_takes_its_cap_and_refuses_past_it(cuda):
+    cap = tsg.MAX_GROUP_SHARDS
+    assert cap >= 8192
+    _check_grouping(cuda, _shard_ids("out_of_range", 2**20, cap, 1), cap)
+    sid = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="MAX_GROUP_SHARDS"):
+        tsg.group_by_shard(sid, sid, cap + 1)
+    fused = torch.zeros((cap + 1, 1, 2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="MAX_GROUP_SHARDS"):
+        tft.foresight_traverse_sharded(fused, sid, sid)
+    with pytest.raises(ValueError, match="MAX_GROUP_SHARDS"):
+        tft.base_traverse_sharded(fused[..., 0].contiguous(),
+                                  fused[:, 0, :, 0].contiguous(), sid, sid)
+
+
+def _lanes(shl, keys, traffic, batch, seed):
+    """(shard ids, queries) on the index: half hits, every lane in shard 0,
+    Zipf(1.2) by key rank, or half hits with ids -1 and S mixed in."""
+    rng = np.random.default_rng(seed)
+    if traffic == "zipf":
+        q = keys[(rng.zipf(1.2, batch) - 1) % len(keys)]
+    elif traffic == "one_shard":
+        b1 = (int(shl.boundaries[1]) if shl.n_shards > 1 else 1 << 22)
+        q = rng.choice(keys[keys < b1], batch)
+    else:
+        q = np.concatenate([rng.choice(keys, batch // 2),
+                            rng.integers(0, 1 << 22, batch - batch // 2)])
+    q = torch.from_numpy(q.astype(np.int32)).to(shl.device)
+    sid = tsh.route(shl.boundaries, q)
+    if traffic == "out_of_range":
+        sid[::5] = -1
+        sid[2::5] = shl.n_shards
+    return sid, q
+
+
+@pytest.mark.parametrize("traffic",
+                         ["half_hit", "one_shard", "zipf", "out_of_range"])
+@pytest.mark.parametrize("n_shards", [1, 8, 9])
+@pytest.mark.parametrize("foresight", [True, False])
+def test_grouped_dense_walk_equals_plain_and_cpu_on_card(cuda, foresight,
+                                                         n_shards, traffic):
+    shl, keys = _index(cuda, n_shards, foresight)
+    sid, q = _lanes(shl, keys, traffic, 2049, n_shards)
+    (dense, dense_plain), _ = _kernels(shl)
+    before = dense.launches, tsg.group_by_shard.launches
+    got = dense(*_tables(shl), sid, q)
+    assert (dense.launches, tsg.group_by_shard.launches) == (
+        before[0] + 1, before[1] + 1)
+    _check(got, dense_plain(*_tables(shl), sid, q),
+           dense_plain(*(t.cpu() for t in _tables(shl)), sid.cpu(), q.cpu()))
+    if traffic == "out_of_range":
+        assert int(got[0][::5].abs().sum() + got[1][2::5].abs().sum()) == 0
