@@ -10,28 +10,38 @@ Phases, one JSON line each:
    source, all started together);
 3. small check: foresight and base skiplists (n=4000, cap=8192, L=14)
    built on the card equal their CPU builds, and K1 / K2 equal their plain
-   versions on a half-hit, half-miss batch;
+   versions on a half-hit, half-miss batch; K2 runs its key-range grouping
+   pass (``group_by_key``), which equals its plain version, and equals its
+   launch on the lanes in batch order;
 4. small update check, same size: a 2000-op mixed stream through
    ``apply_ops`` on the card equals the CPU run in every state array and
-   result (both variants) and leaves its input unchanged; K8 equals its
-   plain version on a clean, a 40%-corrupted and a lag-1 table, at the
-   default step cap and at 9 steps; after an insert-only batch, lag-1
-   reads answer for the stale key set;
+   result (both variants) and leaves its input unchanged; K8 (grouped by
+   key range) equals its plain version and its batch-order launch on a
+   clean, a 40%-corrupted and a lag-1 table, at the default step cap and
+   at 9 steps; after an insert-only batch, lag-1 reads answer for the
+   stale key set;
 5. the paper's configuration, once per variant: 2^25 keys drawn from
    [0, 2^26) (Synchrobench: key range twice the size), vals = keys + 1,
    27 levels, capacity 2^26, built on the card with
-   ``repro_torch.core.skiplist.build``; 2^20 uniform lookups through
-   ``repro_torch.kernels.ops.search_kernel`` held against a numpy
-   membership oracle; the kernel held against its plain version on the
-   same 2^20 queries; kernel, plain and ``torch.searchsorted`` times
-   (median of CUDA-event timings) and the byte bound of the batch's paths;
+   ``repro_torch.core.skiplist.build``; 2^20 uniform and 2^20 Zipf(1.2)
+   lookups through ``repro_torch.kernels.ops.search_kernel`` held against
+   a numpy membership oracle; the kernel held against its plain version on
+   the same queries; kernel, plain and ``torch.searchsorted`` times
+   (median of CUDA-event timings) and the byte and sector bounds of the
+   batch's paths.  K2 groups its lanes by key range first: the pass is
+   held against its plain version and a stable argsort and timed alone
+   (``group_ms``, beside ``torch.sort``), the walk is also timed on the
+   lanes in batch order (``ungrouped_ms``, checked equal) and on lanes
+   grouped beforehand (``grouped_walk_ms``), and five calls are profiled
+   (the pass's device time against the walk's);
 6. updates and versioned reads at the same size: the foresight build in a
    ``VersionedIndex``, ``update`` with 1024 ops of fig3's upd=50% mix
    (each result held against a host oracle, then the foresight invariant),
-   2^20 lag-1 reads through K8 (``search(lag=1, use_kernel=True)``) and
-   lag-0 reads through ``search`` and K1, held against the oracle, the
-   plain K8 and ``search_validated``; K8's times, bound, path lengths and
-   the queries its ``4L+16`` step cap cuts;
+   on both traffics 2^20 lag-1 reads through K8 (``search(lag=1,
+   use_kernel=True)``) and lag-0 reads through ``search`` and K1, held
+   against the oracle, the plain K8 and ``search_validated``; K8's times
+   (grouped, in batch order, the pass alone, a profile), bound, path
+   lengths and the queries its ``4L+16`` step cap cuts;
 7. small sharded check (n=1500 keys in [0, 2^22), vals 3*keys, S=8,
    L=12, both variants): ``build_sharded``, ``split_shard``,
    ``merge_shards`` and ``repack`` on the card equal the CPU; on S=9 (a
@@ -89,13 +99,14 @@ Phases, one JSON line each:
 10. the fat layout at the paper's size: the same 2^25 keys packed into
    runs (``benchmarks/common.py:26-41``, ``benchmarks/fig_fat_node.py``):
    B = 128 (2^19 nodes, capacity 2^21, L = 27), both variants, and B = 8
-   (capacity 2^25), foresight, through ``search_kernel`` (K1/K2 + K9);
-   B = 128 over S = 64 shards (2^15 node slots a shard, L = 21), both
-   traffics through the dense and clustered paths (K3-K6 + K9, K7; the
-   dense walk grouped, and timed ungrouped as in 8) and the eager
-   ``search_sharded``; answers held against the numpy oracle and the
-   scalar phases' answers, every kernel against its plain version,
-   node ids dereferenced into ``fat_vals``; 256 updates of fig3's upd=50%
+   (capacity 2^25), foresight, through ``search_kernel`` (K1/K2 + K9; K2
+   grouped by key range, and timed in batch order as in 5); B = 128 over
+   S = 64 shards (2^15 node slots a shard, L = 21), both traffics through
+   the dense and clustered paths (K3-K6 + K9, K7; the dense walk grouped,
+   and timed ungrouped as in 8) and the eager ``search_sharded``; answers
+   held against the numpy oracle and the scalar phases' answers, every
+   kernel against its plain version, node ids dereferenced into
+   ``fat_vals``; 256 updates of fig3's upd=50%
    mix through ``apply_ops`` (B = 128 monolith) and ``apply_ops_sharded``
    against the host oracle, then ``check_fat_invariant`` and an unchanged
    input; K9 alone (``fat_resolve``) checked and timed on the final
@@ -103,8 +114,9 @@ Phases, one JSON line each:
    plus distinct runs x B x 4 bytes, path lengths, peak memory;
 11. the ``kernels`` line: every ported kernel with its main-path launches
    (K5/K6's include those K10 made), the fat launches of K1-K6 as rows of
-   their own, ``fat_resolve``, ``search_kernel_mesh`` (K10) and
-   ``group_by_shard`` (its launches on the four sharded main paths).
+   their own, ``fat_resolve``, ``search_kernel_mesh`` (K10),
+   ``group_by_shard`` (its launches on the four sharded main paths) and
+   ``group_by_key`` (its launches on the K2, K8 and fat K2 main paths).
 
 Then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check, build or launch raises, and the script exits non-zero.
@@ -188,6 +200,9 @@ KERNELS = {   # name -> (wrapper, plain version, source, TPU kernel replaced)
     # K3/K4's grouping pass: a new kernel that stands in for no TPU kernel
     "group_by_shard": (sg.group_by_shard, sg.group_by_shard_plain,
                        SHARD_GROUP_CU, "none (a new pass; no TPU kernel)"),
+    # K2/K8's key-range grouping pass, the same
+    "group_by_key": (sg.group_by_key, sg.group_by_key_plain, SHARD_GROUP_CU,
+                     "none (a new pass; no TPU kernel)"),
 }
 
 
@@ -331,6 +346,89 @@ def build_kernels() -> None:
           "nvcc_flags": " ".join(_build.NVCC_FLAGS)})
 
 
+def monolith_launch(name: str, tables, q: torch.Tensor, fat_keys=None,
+                    max_steps: int = 0, out_idx=None) -> tuple:
+    """K2 (``base_traverse``) or K8 (``validated_traverse``) launched
+    through ``_build.launch`` directly, without the wrapper's key grouping:
+    lane i walks q[i] and writes at ``out_idx[i]``.  ``out_idx`` None is the
+    launch on the lanes in batch order; ``group_by_key``'s (q_sorted, perm)
+    as (q, out_idx) is the grouped walk without its pass.  It counts no
+    launch."""
+    node, key = torch.empty_like(q), torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    idx = None if out_idx is None else out_idx.data_ptr()
+    if name == "validated_traverse":
+        fused, auth = tables
+        L, cap, _ = fused.shape
+        _build.launch("validated_traverse_launch", fused.data_ptr(),
+                      auth.data_ptr(), idx, q.data_ptr(), node.data_ptr(),
+                      key.data_ptr(), q.numel(), L, cap,
+                      max_steps or vt.default_max_steps(L), stream)
+        return node, key
+    nxt, keys = tables
+    L, cap = nxt.shape
+    _build.launch("base_traverse_launch", nxt.data_ptr(), keys.data_ptr(),
+                  None if fat_keys is None else fat_keys.data_ptr(), idx,
+                  q.data_ptr(), node.data_ptr(), key.data_ptr(), q.numel(), L,
+                  cap, 1 if fat_keys is None else fat_keys.shape[-1],
+                  max_steps or ft.traversal_bound(L, cap), stream)
+    return node, key
+
+
+def split_times(name: str, tables, q: torch.Tensor, fat_keys=None) -> dict:
+    """K2's or K8's call taken apart, by CUDA events: the walk on the lanes
+    in batch order (``ungrouped_ms``, checked equal to the wrapper's
+    answer) and on lanes grouped beforehand (``grouped_walk_ms``, the call
+    without its pass); and a profile of five calls, pass against walk."""
+    fat = () if fat_keys is None else (fat_keys,)
+    want = KERNELS[name][0](*tables, q, *fat)
+    check(max_abs_err(want, monolith_launch(name, tables, q, fat_keys)) == 0,
+          f"grouped {name} equals its batch-order launch")
+    q_s, perm = sg.group_by_key(q)
+    check(max_abs_err(want, monolith_launch(name, tables, q_s, fat_keys,
+                                            out_idx=perm)) == 0,
+          f"{name} on lanes grouped beforehand equals the wrapper")
+    walk = "base_kernel" if name == "base_traverse" else "validated_kernel"
+    prof = device_breakdown(lambda: KERNELS[name][0](*tables, q, *fat),
+                            calls=5, walk=walk)
+    return {
+        "ungrouped_ms": time_ms(
+            lambda: monolith_launch(name, tables, q, fat_keys), KERNEL_REPS),
+        "grouped_walk_ms": time_ms(
+            lambda: monolith_launch(name, tables, q_s, fat_keys,
+                                    out_idx=perm), KERNEL_REPS),
+        "profile": prof,
+        "ungrouped_profile": device_breakdown(
+            lambda: monolith_launch(name, tables, q, fat_keys), calls=5,
+            walk=walk)}
+
+
+def check_key_grouping(q: torch.Tensor, what: str) -> int:
+    """``group_by_key`` on the card equals its plain version, ``perm`` is a
+    stable argsort of the key buckets and ``q_sorted = q[perm]``; returns
+    the max abs error."""
+    q_s, perm = sg.group_by_key(q)
+    err = max_abs_err((perm,), (sg.group_by_key_plain(q),))
+    check(err == 0, f"group_by_key equals its plain version ({what})")
+    check(torch.equal(perm.long(), torch.argsort(sg.key_buckets(q),
+                                                 stable=True)),
+          f"group_by_key's perm is a stable argsort ({what})")
+    check(torch.equal(q_s, q[perm.long()]),
+          f"group_by_key's q_sorted ({what})")
+    return err
+
+
+def key_group_times(q: torch.Tensor) -> dict:
+    """The key pass alone: its time, its plain version's and a stable
+    ``torch.sort`` of the queries' (the library's nearest call)."""
+    return dict(
+        ms=time_ms(lambda: sg.group_by_key(q), KERNEL_REPS),
+        plain_ms=time_ms(lambda: sg.group_by_key_plain(q), PLAIN_REPS),
+        library_ms=time_ms(lambda: torch.sort(q, stable=True), KERNEL_REPS),
+        # q read once; q_sorted and perm written once
+        bound_ms=q.numel() * 12 / HBM_BYTES_PER_S * 1e3)
+
+
 def small_check() -> None:
     rng = np.random.default_rng(SEED)
     keys = np.sort(rng.choice(1 << 22, SMALL["n"], replace=False))
@@ -349,13 +447,21 @@ def small_check() -> None:
                 check(torch.equal(t.cpu(), getattr(cpu, name)),
                       f"card build equals CPU build ({name})")
         wrapper, plain, *_ = KERNELS[kernel_name(st)]
-        before = wrapper.launches
+        before = wrapper.launches, sg.group_by_key.launches
         got = wrapper(*table_args(st), q)
         want = plain(*table_args(st), q)
-        check(wrapper.launches == before + 1, f"{kernel_name(st)} launched")
+        check(wrapper.launches == before[0] + 1,
+              f"{kernel_name(st)} launched")
         err = max_abs_err(got, want)
         check(err == 0, f"{kernel_name(st)} equals its plain version")
         report[kernel_name(st)] = {"max_abs_err": err}
+        if not foresight:                  # K2 groups its lanes by key
+            check(sg.group_by_key.launches == before[1] + 1,
+                  "base_traverse ran group_by_key")
+            check(max_abs_err(got, monolith_launch(
+                "base_traverse", table_args(st), q)) == 0,
+                  "grouped K2 equals its batch-order launch")
+            report["group_by_key_err"] = check_key_grouping(q, "small")
     emit(report)
 
 
@@ -390,14 +496,21 @@ def check_same_state(got: sl.SkipListState, want: sl.SkipListState,
 
 
 def check_k8(fused, auth, q, report: dict, label: str) -> None:
-    """K8 equals its plain version bit for bit, at the default step cap and
-    at a truncating one."""
+    """K8 (grouped by key) equals its plain version and its launch on the
+    lanes in batch order bit for bit, at the default step cap and at a
+    truncating one."""
     for max_steps in (0, 9):
+        before = sg.group_by_key.launches
         got = vt.validated_traverse(fused, auth, q, max_steps=max_steps)
+        check(sg.group_by_key.launches == before + 1,
+              f"K8 ran group_by_key ({label})")
         want = vt.validated_traverse_plain(fused, auth, q,
                                            max_steps=max_steps)
-        err = max_abs_err(got, want)
-        check(err == 0, f"K8 equals its plain version ({label}, "
+        err = max(max_abs_err(got, want), max_abs_err(
+            got, monolith_launch("validated_traverse", (fused, auth), q,
+                                 max_steps=max_steps)))
+        check(err == 0, f"grouped K8 equals its plain version and its "
+                        f"batch-order launch ({label}, "
                         f"max_steps={max_steps})")
         report[f"k8_{label}_max_steps_{max_steps}_err"] = err
 
@@ -545,11 +658,14 @@ def validated_footprint(fused, auth, q, max_steps: int) -> dict:
         loads=loads, path=path)
 
 
-def versioned_full_size(keys_np: np.ndarray, q_np: np.ndarray) -> dict:
+def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
     """Updates and mixed-view reads at the paper's size: build, one update
-    batch through ``VersionedIndex.update``, then 2^20 lag-1 reads through
-    K8 and lag-0 reads through ``search`` and K1, each held against a host
-    oracle."""
+    batch through ``VersionedIndex.update``, then on each traffic 2^20
+    lag-1 reads through K8 and lag-0 reads through ``search`` and K1, each
+    held against a host oracle.  K8 groups its lanes by key range: it is
+    also timed on the lanes in batch order and the pass alone, and five
+    calls are profiled (``split_times``).  Returns ({traffic: K8's
+    kernels-line row}, the key pass's launches on the main path)."""
     stage_s, t_stage = {}, time.perf_counter()
     t_phase = t_stage
 
@@ -558,14 +674,14 @@ def versioned_full_size(keys_np: np.ndarray, q_np: np.ndarray) -> dict:
         nonlocal t_stage
         torch.cuda.synchronize()
         now = time.perf_counter()
-        stage_s[stage] = now - t_stage
+        stage_s[stage] = stage_s.get(stage, 0.0) + now - t_stage
         t_stage = now
 
     dev = torch.device(DEVICE)
     types, ks, vs = synchrobench_ops(UPDATE_OPS, SEED + 2)
     want_results, current = host_oracle(keys_np, types, ks)
     lap("host_oracle")
-    q = torch.from_numpy(q_np).to(dev)
+    qs = {name: torch.from_numpy(q).to(dev) for name, q in traffic.items()}
     torch.cuda.reset_peak_memory_stats()
 
     # The main path, with every launch counter at 0 just before it.
@@ -581,21 +697,26 @@ def versioned_full_size(keys_np: np.ndarray, q_np: np.ndarray) -> dict:
     results = vi.update(*on(dev, types, ks, vs))
     torch.cuda.synchronize()
     update_s = time.perf_counter() - t0
-    lag1 = vi.search(q, lag=1, use_kernel=True)
-    lag0 = vi.search(q, lag=0)
-    k1 = ops.search_kernel(vi.current, q)
+    reads = {name: (vi.search(q, lag=1, use_kernel=True), vi.search(q, lag=0),
+                    ops.search_kernel(vi.current, q))
+             for name, q in qs.items()}
     torch.cuda.synchronize()
     launches = read_launches()
     lap("main_path")
     for name in ("validated_traverse", "foresight_traverse"):
         check(launches[name] >= 1, f"versioned path launched {name}")
+    check(launches["group_by_key"] == len(qs),
+          "versioned path ran group_by_key once a K8 call")
 
     check(np.array_equal(results.cpu().numpy(), want_results),
           "every apply_ops result equals the oracle")
     check(bool(sl.check_foresight_invariant(vi.current)),
           "foresight invariant holds after the update")
-    check_lookups(lag0.found, lag0.vals, q_np, current, "lag-0 search")
-    check_lookups(k1.found, k1.vals, q_np, current, "K1 on vi.current")
+    for name, (_, lag0, k1) in reads.items():
+        check_lookups(lag0.found, lag0.vals, traffic[name], current,
+                      f"lag-0 search ({name})")
+        check_lookups(k1.found, k1.vals, traffic[name], current,
+                      f"K1 on vi.current ({name})")
     n_live = int(vi.current.n)
     live_keys = sl.sorted_live_kv(vi.current)[0][:n_live]
     check(np.array_equal(live_keys.cpu().numpy(), current),
@@ -604,80 +725,100 @@ def versioned_full_size(keys_np: np.ndarray, q_np: np.ndarray) -> dict:
 
     view = vi.read_view(lag=1)
     fused, auth = view.fused, view.auth_keys
+    tables = (fused, auth)
     max_steps = vt.default_max_steps(FULL_LEVELS)
-    fp = validated_footprint(fused, auth, q, max_steps)
-    cut = fp["path"] > max_steps
-    lap("footprint_replay")
-    got = vt.validated_traverse(fused, auth, q)
-    err = max_abs_err(got, vt.validated_traverse_plain(fused, auth, q))
-    check(err == 0, "K8 equals its plain version at full size")
-    check(torch.equal(got[0], lag1.node), "K8 node is the lag-1 read's")
-    ref = search_validated(fused, auth, view.vals, q)
-    keep = ~cut                # a lane cut at max_steps has no equal there
-    check(torch.equal(lag1.found[keep], ref.found[keep]),
-          "K8 found equals search_validated")
-    check(torch.equal(lag1.vals[keep], ref.vals[keep]),
-          "K8 vals equals search_validated")
-    hit = keep & ref.found
-    check(torch.equal(lag1.node[hit], ref.node[hit]),
-          "K8 node equals search_validated where found")
-    lap("k8_checks")
-
-    kernel_ms = time_ms(lambda: vt.validated_traverse(fused, auth, q),
-                        KERNEL_REPS)
-    plain_ms = time_ms(lambda: vt.validated_traverse_plain(fused, auth, q),
-                       PLAIN_REPS)
-    library_ms = time_ms(lambda: torch.searchsorted(live_keys, q),
-                         KERNEL_REPS)
-    k1_ms = time_ms(lambda: ft.foresight_traverse(vi.current.fused, q),
-                    KERNEL_REPS)
-    lap("timing")
-    io_bytes = q.numel() * 4 * 3             # queries in, node + key out
-    bytes_ms = (fp["distinct_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = fp["loads"] / SCALAR_OPS_PER_S * 1e3   # one compare a load
-    bound_ms = max(bytes_ms, ops_ms)
     wrapper, plain, source, replaces = KERNELS["validated_traverse"]
-    row = {"name": "validated_traverse", "route": "cuda", "source": source,
-           "replaces": replaces, "launches": launches["validated_traverse"],
-           "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms,
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": library_ms}
-    emit({"phase": "versioned_full_size", "n": FULL_N, "levels": FULL_LEVELS,
-          "capacity": FULL_CAP, "batch": q.numel(), "update_ops": UPDATE_OPS,
-          "op_mix": "25% insert, 25% delete, 50% read",
-          "results_by_op": {t: int(want_results[types == code].sum())
-                            for t, code in (("read_hits", sl.OP_READ),
-                                            ("inserted", sl.OP_INSERT),
-                                            ("deleted", sl.OP_DELETE))},
-          "build_s": build_s, "update_s": update_s,
-          "update_us_per_op": update_s / UPDATE_OPS * 1e6,
-          "n_after": n_live, "lag0_hits": int(lag0.found.sum()),
-          "lag1_hits": int(lag1.found.sum()), **row,
-          "mops": q.numel() / kernel_ms / 1e3,
-          "k8_over_k1_ms": kernel_ms / k1_ms,
-          "validation_load": "on level 0, and above it only on a foreseen "
-                             "advance",
-          "mean_path_steps": float(fp["path"].float().mean()),
-          "max_path_steps": int(fp["path"].max()), "max_steps": max_steps,
-          "queries_over_max_steps": int(cut.sum()),
-          "distinct_bytes": fp["distinct_bytes"],
-          "sector_bytes": fp["sector_bytes"],
-          "sector_bound_ms": (fp["sector_bytes"] + io_bytes)
-          / HBM_BYTES_PER_S * 1e3,
-          "bound_share": bound_ms / kernel_ms,
-          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "stage_s": stage_s, "seconds": time.perf_counter() - t_phase})
-    del vi, view, fused, auth, lag0, lag1, k1, ref, live_keys
+    rows = {}
+    for name, q in qs.items():
+        lag1 = reads[name][0]
+        fp = validated_footprint(fused, auth, q, max_steps)
+        cut = fp["path"] > max_steps
+        lap("footprint_replay")
+        got = vt.validated_traverse(fused, auth, q)
+        err = max_abs_err(got, vt.validated_traverse_plain(fused, auth, q))
+        check(err == 0, f"K8 equals its plain version at full size ({name})")
+        check(torch.equal(got[0], lag1.node),
+              f"K8 node is the lag-1 read's ({name})")
+        ref = search_validated(fused, auth, view.vals, q)
+        keep = ~cut            # a lane cut at max_steps has no equal there
+        check(torch.equal(lag1.found[keep], ref.found[keep]),
+              f"K8 found equals search_validated ({name})")
+        check(torch.equal(lag1.vals[keep], ref.vals[keep]),
+              f"K8 vals equals search_validated ({name})")
+        hit = keep & ref.found
+        check(torch.equal(lag1.node[hit], ref.node[hit]),
+              f"K8 node equals search_validated where found ({name})")
+        g_err = check_key_grouping(q, f"versioned {name}")
+        lap("k8_checks")
+
+        kernel_ms = time_ms(lambda: vt.validated_traverse(fused, auth, q),
+                            KERNEL_REPS)
+        split = split_times("validated_traverse", tables, q)
+        plain_ms = time_ms(lambda: vt.validated_traverse_plain(fused, auth,
+                                                               q),
+                           PLAIN_REPS)
+        library_ms = time_ms(lambda: torch.searchsorted(live_keys, q),
+                             KERNEL_REPS)
+        k1_ms = time_ms(lambda: ft.foresight_traverse(vi.current.fused, q),
+                        KERNEL_REPS)
+        group = {**key_group_times(q), "max_abs_err": g_err}
+        lap("timing")
+        io_bytes = q.numel() * 4 * 3           # queries in, node + key out
+        bytes_ms = (fp["distinct_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
+        ops_ms = fp["loads"] / SCALAR_OPS_PER_S * 1e3   # one compare a load
+        bound_ms = max(bytes_ms, ops_ms)
+        sector_ms = (fp["sector_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
+        rows[name] = {
+            "name": "validated_traverse", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches["validated_traverse"],
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "sector_bound_ms": sector_ms,
+            "ungrouped_ms": split["ungrouped_ms"]}
+        emit({"phase": "versioned_full_size", "traffic": name, "n": FULL_N,
+              "levels": FULL_LEVELS, "capacity": FULL_CAP,
+              "batch": q.numel(), "update_ops": UPDATE_OPS,
+              "op_mix": "25% insert, 25% delete, 50% read",
+              "results_by_op": {t: int(want_results[types == code].sum())
+                                for t, code in (("read_hits", sl.OP_READ),
+                                                ("inserted", sl.OP_INSERT),
+                                                ("deleted", sl.OP_DELETE))},
+              "build_s": build_s, "update_s": update_s,
+              "update_us_per_op": update_s / UPDATE_OPS * 1e6,
+              "n_after": n_live, "lag0_hits": int(reads[name][1].found.sum()),
+              "lag1_hits": int(lag1.found.sum()), **rows[name],
+              **split, "group": group,
+              "grouped_over_ungrouped_ms": kernel_ms / split["ungrouped_ms"],
+              "mops": q.numel() / kernel_ms / 1e3,
+              "k1_ms": k1_ms, "k8_over_k1_ms": kernel_ms / k1_ms,
+              "validation_load": "on level 0, and above it only on a "
+                                 "foreseen advance",
+              "mean_path_steps": float(fp["path"].float().mean()),
+              "max_path_steps": int(fp["path"].max()),
+              "max_steps": max_steps,
+              "queries_over_max_steps": int(cut.sum()),
+              "distinct_bytes": fp["distinct_bytes"],
+              "sector_bytes": fp["sector_bytes"],
+              "bound_share": bound_ms / kernel_ms,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "stage_s": stage_s, "seconds": time.perf_counter() - t_phase})
+        del fp, got, ref, lag1
+    del vi, view, fused, auth, tables, reads, live_keys
     torch.cuda.empty_cache()
-    return row
+    return rows, launches["group_by_key"]
 
 
-def full_size(keys_np: np.ndarray, q_np: np.ndarray, foresight: bool) -> dict:
-    """Build at the paper's size, run the main path, check, time, bound."""
+def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
+    """Build at the paper's size, run the main path on each traffic, check,
+    time, bound.  K2 groups its lanes by key range: it is also timed on the
+    lanes in batch order (``ungrouped_ms``, checked equal) and the pass
+    alone (``group_ms``), and five calls are profiled (``split_times``).
+    Returns {traffic: its kernels-line row}; a K2 row also carries the
+    pass's row under ``group``."""
     dev = torch.device(DEVICE)
     keys = torch.from_numpy(keys_np).to(dev)
-    q = torch.from_numpy(q_np).to(dev)
+    qs = {name: torch.from_numpy(q).to(dev) for name, q in traffic.items()}
     torch.cuda.reset_peak_memory_stats()
 
     # The main path, with every launch counter at 0 just before it.
@@ -687,54 +828,83 @@ def full_size(keys_np: np.ndarray, q_np: np.ndarray, foresight: bool) -> dict:
                   foresight=foresight, seed=SEED, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res = ops.search_kernel(st, q)
-    torch.cuda.synchronize()
-    search_s = time.perf_counter() - t0
+    search_s, res = {}, {}
+    for name, q in qs.items():
+        t0 = time.perf_counter()
+        res[name] = ops.search_kernel(st, q)
+        torch.cuda.synchronize()
+        search_s[name] = time.perf_counter() - t0
     launches = read_launches()
     name = kernel_name(st)
     check(launches[name] >= 1, f"main path launched {name}")
-
-    check_lookups(res.found, res.vals, q_np, keys_np, "search_kernel")
+    if not foresight:
+        check(launches["group_by_key"] == len(qs),
+              "main path ran group_by_key once a K2 call")
 
     wrapper, plain, source, replaces = KERNELS[name]
     tables = table_args(st)
-    err = max_abs_err(wrapper(*tables, q), plain(*tables, q))
-    check(err == 0, f"{name} equals its plain version at full size")
+    rows = {}
+    for tname, q in qs.items():
+        check_lookups(res[tname].found, res[tname].vals, traffic[tname],
+                      keys_np, f"search_kernel ({tname})")
+        got = wrapper(*tables, q)
+        err = max_abs_err(got, plain(*tables, q))
+        check(err == 0, f"{name} equals its plain version at full size "
+                        f"({tname})")
+        kernel_ms = time_ms(lambda: wrapper(*tables, q), KERNEL_REPS)
+        plain_ms = time_ms(lambda: plain(*tables, q), PLAIN_REPS)
+        library_ms = time_ms(lambda: torch.searchsorted(keys, q),
+                             KERNEL_REPS)
+        extra = {}
+        if not foresight:                   # the batch-order launch, the pass
+            g_err = check_key_grouping(q, f"full size {tname}")
+            extra = {**split_times(name, tables, q),
+                     "group": {**key_group_times(q), "max_abs_err": g_err}}
+            extra["grouped_over_ungrouped_ms"] = \
+                kernel_ms / extra["ungrouped_ms"]
 
-    kernel_ms = time_ms(lambda: wrapper(*tables, q), KERNEL_REPS)
-    plain_ms = time_ms(lambda: plain(*tables, q), PLAIN_REPS)
-    library_ms = time_ms(lambda: torch.searchsorted(keys, q), KERNEL_REPS)
-
-    fp = path_footprint(tuple(t[None] for t in tables), q)
-    io_bytes = q.numel() * 4 * 3             # queries in, node + key out
-    bytes_ms = (fp["distinct_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = fp["steps"] / SCALAR_OPS_PER_S * 1e3   # one compare a step
-    bound_ms = max(bytes_ms, ops_ms)
-    row = {"name": name, "route": "cuda", "source": source,
-           "replaces": replaces, "launches": launches[name],
-           "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms,
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": library_ms}
-    emit({"phase": "full_size", "n": FULL_N, "levels": FULL_LEVELS,
-          "capacity": FULL_CAP, "batch": q.numel(),
-          "table_gb": ops.tile_bytes(FULL_LEVELS, FULL_CAP, foresight) / 1e9,
-          "build_s": build_s, "search_kernel_s": search_s,
-          "hits": int(res.found.sum()), **row,
-          "mops": q.numel() / kernel_ms / 1e3,
-          "mean_path_steps": fp["steps"] / q.numel(),
-          "distinct_bytes": fp["distinct_bytes"],
-          "distinct_count": "torch.unique over the read indices of a plain "
-                            "replay of the batch's paths",
-          "sector_bytes": fp["sector_bytes"],
-          "sector_bound_ms": (fp["sector_bytes"] + io_bytes)
-          / HBM_BYTES_PER_S * 1e3,
-          "bound_share": bound_ms / kernel_ms,
-          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        fp = path_footprint(tuple(t[None] for t in tables), q)
+        io_bytes = q.numel() * 4 * 3             # queries in, node + key out
+        bytes_ms = (fp["distinct_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
+        ops_ms = fp["steps"] / SCALAR_OPS_PER_S * 1e3   # one compare a step
+        bound_ms = max(bytes_ms, ops_ms)
+        sector_ms = (fp["sector_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
+        rows[tname] = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "sector_bound_ms": sector_ms,
+            **({"ungrouped_ms": extra["ungrouped_ms"]} if extra else {})}
+        emit({"phase": "full_size", "traffic": tname, "n": FULL_N,
+              "levels": FULL_LEVELS, "capacity": FULL_CAP,
+              "batch": q.numel(),
+              "table_gb": ops.tile_bytes(FULL_LEVELS, FULL_CAP,
+                                         foresight) / 1e9,
+              "build_s": build_s, "search_kernel_s": search_s[tname],
+              "hits": int(res[tname].found.sum()), **rows[tname], **extra,
+              "mops": q.numel() / kernel_ms / 1e3,
+              "mean_path_steps": fp["steps"] / q.numel(),
+              "max_path_steps": int(fp["path"].max()),
+              "distinct_bytes": fp["distinct_bytes"],
+              "distinct_count": "torch.unique over the read indices of a "
+                                "plain replay of the batch's paths",
+              "sector_bytes": fp["sector_bytes"],
+              "bound_share": bound_ms / kernel_ms,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        if extra:
+            rows[tname]["group"] = {
+                "name": "group_by_key", "route": "cuda",
+                "source": SHARD_GROUP_CU,
+                "replaces": KERNELS["group_by_key"][3],
+                "launches": launches["group_by_key"], **extra["group"],
+                "bound_by": "bytes", "sector_bound_ms": extra["group"][
+                    "bound_ms"]}
+        del fp, got
     del st, res, tables
     torch.cuda.empty_cache()
-    return row
+    return rows
 
 
 def variant(foresight: bool) -> str:
@@ -1324,11 +1494,15 @@ def mesh_exchange(mx: mi.MeshShardedIndex, q: torch.Tensor, mesh) -> list:
     return mi._exchange_back((rq, rq, rq), perm, starts, did_s, D, group)
 
 
-def device_breakdown(fn, top: int = 10, tries: int = 3) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: the device kernels that
-    ran, by device time (the ``top`` largest), and their sum.  A profile
-    that recorded no device event (the tracer sometimes loses a cycle's
-    events) is taken again, at most ``tries`` times in all."""
+def device_breakdown(fn, top: int = 10, tries: int = 3, calls: int = 1,
+                     walk: str = None) -> dict:
+    """``calls`` calls of ``fn`` under ``torch.profiler``: the device
+    kernels that ran, by device time a call (the ``top`` largest), and
+    their sum.  A profile that recorded no device event (the tracer
+    sometimes loses a cycle's events), or with ``walk`` none of that
+    kernel, is taken again, at most ``tries`` times in all.  With ``walk``
+    the sum is also split into that kernel's time and the rest's (a
+    grouping pass)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1336,18 +1510,25 @@ def device_breakdown(fn, top: int = 10, tries: int = 3) -> dict:
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
-        rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
+        rows = sorted(((e.key, e.device_time_total / 1e3 / calls,
+                        e.count / calls)
                        for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA
                        and e.device_time_total > 0),
                       key=lambda r: -r[1])
-        if rows:
+        if rows and (walk is None or any(walk in k for k, *_ in rows)):
             break
-    return {"device_ms": sum(r[1] for r in rows), "launches":
-            sum(r[2] for r in rows), "top": [[k[:80], ms, n]
-                                             for k, ms, n in rows[:top]]}
+    out = {"device_ms": sum(r[1] for r in rows), "launches":
+           sum(r[2] for r in rows), "top": [[k[:80], ms, n]
+                                            for k, ms, n in rows[:top]]}
+    if walk is not None:
+        out["walk_device_ms"] = sum(ms for k, ms, _ in rows if walk in k)
+        out["pass_device_ms"] = out["device_ms"] - out["walk_device_ms"]
+        out["calls"] = calls
+    return out
 
 
 def mesh_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
@@ -1789,6 +1970,11 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
     kernel_ms = time_ms(lambda: wrapper(*walk, q, fat), KERNEL_REPS)
     plain_ms = time_ms(lambda: plain(*walk, q, fat), PLAIN_REPS)
     library_ms = time_ms(lambda: torch.searchsorted(keys, q), KERNEL_REPS)
+    extra = {}
+    if not foresight:            # K2 + K9 groups by key: the batch order too
+        split = split_times(name, walk, q, fat)
+        extra["ungrouped_ms"] = split["ungrouped_ms"]
+        report.update(split, group_by_key_launches=launches["group_by_key"])
     lap("timing")
     io_bytes = q.numel() * 4 * 3             # queries in, node + key out
     bytes_ms = (fp["distinct_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
@@ -1800,9 +1986,9 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms}
+        "library_ms": library_ms, **extra}
     report.update(
-        hits=int(res.found.sum()), mops=q.numel() / kernel_ms / 1e3,
+        hits=int(res.found.sum()), mops=q.numel() / kernel_ms / 1e3, **extra,
         ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=bound_ms, bound_share=bound_ms / kernel_ms,
         mean_path_steps=fp["steps"] / q.numel(),
@@ -1882,11 +2068,24 @@ def main() -> None:
     keys_np = keys_np.astype(np.int32)
     q_np = np.random.default_rng(SEED + 1).integers(
         0, FULL_SPAN, FULL_BATCH).astype(np.int32)
-    rows = [full_size(keys_np, q_np, foresight) for foresight in (True, False)]
-    emit({"phase": "ratio",
-          "foresight_over_base_ms": rows[0]["ms"] / rows[1]["ms"]})
-    rows.append(versioned_full_size(keys_np, q_np))
     traffic = {"uniform": q_np, "zipf": zipf_queries(keys_np, FULL_BATCH)}
+    mono = {foresight: full_size(keys_np, traffic, foresight)
+            for foresight in (True, False)}
+    emit({"phase": "ratio",      # K1 over K2: grouped, and in batch order
+          "foresight_over_base_ms": {
+              name: {"grouped": mono[True][name]["ms"]
+                     / mono[False][name]["ms"],
+                     "batch_order": mono[True][name]["ms"]
+                     / mono[False][name]["ungrouped_ms"]}
+              for name in traffic}})
+    versioned, versioned_groups = versioned_full_size(keys_np, traffic)
+    # The kernels line takes traffic A's rows; the pass's launches are those
+    # of every path that ran it (K2's, K8's, and the fat K2's below).
+    key_row = mono[False]["uniform"].pop("group")
+    mono[False]["zipf"].pop("group")
+    key_row["launches"] += versioned_groups
+    rows = [mono[True]["uniform"], mono[False]["uniform"],
+            versioned["uniform"], key_row]
     ops_ = synchrobench_ops(SHARD_UPDATE_OPS, SEED + 5)
     t0 = time.perf_counter()
     stream = (ops_, *host_oracle(keys_np, *ops_[:2]))
@@ -1947,6 +2146,7 @@ def main() -> None:
         group_row["launches"] += g["launches"]
         group_row["max_abs_err"] = max(group_row["max_abs_err"],
                                        g["max_abs_err"])
+    key_row["launches"] += fat[(128, False)]["group_by_key_launches"]
     k9 = fat[(128, True)]["k9"]
     k9["launches"] = sum(r["launches"] for r in fat_rows)
     check(k9["launches"] > 0, "fat_resolve (K9) launched on the fat paths")

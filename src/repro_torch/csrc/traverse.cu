@@ -2,7 +2,8 @@
 //
 // Replace the Pallas TPU kernels of repro/kernels/foresight_traverse.py:
 //   foresight_traverse_launch  -> foresight_traverse (_foresight_kernel), K1
-//   base_traverse_launch       -> base_traverse (_base_kernel), K2
+//   base_traverse_launch       -> base_traverse (_base_kernel), K2, on lanes
+//                                 grouped by key range (shard_group.cu)
 //   foresight_sharded_launch   -> foresight_traverse_sharded
 //                                 (_foresight_sharded_kernel), K3, on lanes
 //                                 grouped by shard_group.cu
@@ -44,8 +45,22 @@
 // the same records of that shard's upper levels, which L1 and L2 serve
 // after the first miss.  What still bounds the grouped walk is the rest of
 // each lane's chain of dependent misses below the shared levels.  out_idx
-// == nullptr keeps lane i's result at i (K5/K6, and the ungrouped launch
-// that is timed beside the grouped one).
+// == nullptr keeps lane i's result at i (K1, K5/K6, and the ungrouped
+// launch that is timed beside the grouped one).
+//
+// K2 walks lanes grouped by key range.  A monolithic list has no shard to
+// group by, so the wrapper first runs group_by_key (shard_group.cu): a
+// stable counting sort of the lanes by the bucket (u(q) - lo) >> shift, at
+// most 8192 buckets over the batch's own key span (uniform 2^20 lanes over
+// 2^25 keys: ~128 lanes, four warps, a bucket of ~4096 index keys).  Lane i
+// walks q_sorted[i] and writes at out_idx[i] = perm[i], as in K3/K4.  A
+// warp's lanes then share their path down to about level log2(4096) = 12
+// of 27, roughly half of each lane's steps: there one record load serves the
+// warp, and the records below lie in one narrow window of node ids a level
+// (nodes are allocated in key order), so even the steps a lane takes alone
+// hit sectors its neighbours fetched.  The bucket order changes no lane's
+// walk, only which lanes share a warp, so the results are the batch-order
+// launch's bit for bit, step cap included.
 //
 // The foresight step is ONE 8-byte load of the (next_ptr, next_key) record,
 // an int2 through the read-only path: the paper's fused load.  The base step
@@ -53,9 +68,10 @@
 //
 // What bounds them: on an index far larger than the 50 MB L2 each step is a
 // dependent miss to HBM, so a thread's time is its path length times the
-// miss latency; the card's byte rate is not the limit.  Speeding it up
-// (warp-cooperative upper levels, the top levels cached in shared memory,
-// prefetch) is later work.
+// miss latency; the card's byte rate is not the limit.  Grouping (K2-K4)
+// cuts the misses a warp makes, not the chain a lane waits on; more walks
+// in flight a thread and the top levels in shared memory are the levers
+// left.
 //
 // Record and byte offsets are computed in 64 bits: at 27 levels x 2^26 slots
 // the record index reaches 1.8e9 and the byte offset 14.5e9, and a stack of
@@ -167,19 +183,23 @@ foresight_kernel(const int2* __restrict__ fused, const int* __restrict__ fat,
   key[i] = r.y;
 }
 
+// K2: lane i walks queries[i] and writes its result at out_idx[i], or at i
+// when out_idx is null.
 __global__ void __launch_bounds__(kBlock)
 base_kernel(const int* __restrict__ nxt, const int* __restrict__ keys,
-            const int* __restrict__ fat, const int* __restrict__ queries,
-            int* __restrict__ node, int* __restrict__ key, long long batch,
-            int levels, long long cap, int width, long long max_steps) {
+            const int* __restrict__ fat, const int* __restrict__ out_idx,
+            const int* __restrict__ queries, int* __restrict__ node,
+            int* __restrict__ key, long long batch, int levels, long long cap,
+            int width, long long max_steps) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= batch) return;
   const int q = queries[i];
   int x;
   int2 r = base_walk(nxt, keys, q, levels, cap, max_steps, x);
   if (fat != nullptr) r = fat_resolve(fat, width, q, x, r);
-  node[i] = r.x;
-  key[i] = r.y;
+  const long long o = out_idx == nullptr ? i : (long long)__ldg(out_idx + i);
+  node[o] = r.x;
+  key[o] = r.y;
 }
 
 // K3 and K5: bsids == nullptr is the dense K3, every in-range lane served.
@@ -283,13 +303,17 @@ int foresight_traverse_launch(const void* fused, const void* fat,
   return (int)cudaGetLastError();
 }
 
+// K2: lane i walks queries[i] and writes its result at out_idx[i]; out_idx
+// may be null (lane i writes at i).
 int base_traverse_launch(const void* nxt, const void* keys, const void* fat,
-                         const void* queries, void* node, void* key,
-                         long long batch, int levels, long long cap,
-                         int width, long long max_steps, void* stream) {
+                         const void* out_idx, const void* queries, void* node,
+                         void* key, long long batch, int levels,
+                         long long cap, int width, long long max_steps,
+                         void* stream) {
   base_kernel<<<grid_for(batch), kBlock, 0, (cudaStream_t)stream>>>(
-      (const int*)nxt, (const int*)keys, (const int*)fat, (const int*)queries,
-      (int*)node, (int*)key, batch, levels, cap, width, max_steps);
+      (const int*)nxt, (const int*)keys, (const int*)fat,
+      (const int*)out_idx, (const int*)queries, (int*)node, (int*)key, batch,
+      levels, cap, width, max_steps);
   return (int)cudaGetLastError();
 }
 

@@ -30,14 +30,15 @@ _LL = ctypes.c_longlong
 # Every walk launcher takes its input pointers (queries last), the node and
 # key output pointers, the batch, its sizes, max_steps and the stream.  Every
 # pointer is c_void_p, or ctypes would cut it to 32 bits; ``fat`` may be
-# null (the scalar layout), and so may the dense walks' ``out_idx``.
+# null (the scalar layout), and so may ``out_idx`` (K2, K8 and the dense
+# sharded walks).
 _SIGNATURES = {
     # fused, fat, queries | levels, cap, width
     "foresight_traverse_launch": [_P] * 5 + [_LL, _I, _LL, _I, _LL, _P],
-    # nxt, keys, fat, queries | levels, cap, width
-    "base_traverse_launch": [_P] * 6 + [_LL, _I, _LL, _I, _LL, _P],
-    # fused, auth_keys, queries | levels, cap
-    "validated_traverse_launch": [_P] * 5 + [_LL, _I, _LL, _LL, _P],
+    # nxt, keys, fat, out_idx, queries | levels, cap, width
+    "base_traverse_launch": [_P] * 7 + [_LL, _I, _LL, _I, _LL, _P],
+    # fused, auth_keys, out_idx, queries | levels, cap
+    "validated_traverse_launch": [_P] * 6 + [_LL, _I, _LL, _LL, _P],
     # fused, fat, shard_ids, out_idx, queries | shards, levels, cap, width
     "foresight_sharded_launch": [_P] * 7 + [_LL, _I, _I, _LL, _I, _LL, _P],
     # nxt, keys, fat, shard_ids, out_idx, queries | shards, levels, cap,
@@ -55,6 +56,9 @@ _SIGNATURES = {
     # shard_ids, queries, counts, scanned, offsets, q_sorted, sid_sorted,
     # perm | batch, shards (no max_steps)
     "group_by_shard_launch": [_P] * 8 + [_LL, _I, _P],
+    # queries, partials, counts, scanned, offsets, q_mid, perm_mid,
+    # q_sorted, perm | batch (no max_steps)
+    "group_by_key_launch": [_P] * 9 + [_LL, _P],
 }
 
 

@@ -5,7 +5,10 @@ Port of the kernels of ``repro.kernels.foresight_traverse``:
 * ``foresight_traverse`` (K1): ONE read of the fused ``(ptr, key)`` record
   per step.
 * ``base_traverse`` (K2): TWO dependent reads per step, the pointer and
-  then the pointee's key; the paper's baseline.
+  then the pointee's key; the paper's baseline.  On the card it first
+  groups the lanes by key range (``kernels.shard_group.group_by_key``, a
+  CUDA counting sort by key bucket), walks them in that order and stores
+  each result at its lane's index.
 * ``foresight_traverse_sharded`` / ``base_traverse_sharded`` (K3 / K4):
   the same walks over stacked shard tables, each lane in the shard its
   ``shard_ids`` entry names.  On the card they first group the lanes by
@@ -28,7 +31,7 @@ runs its plain version on CPU tensors; any other device raises.  Each has a
 else, so a run can show its lookups went through the kernel; a launch
 with ``fat_keys`` also counts in the wrapper's ``fat_launches`` and in
 ``fat_resolve.launches``, since K9 ran inside it.  K3 / K4's grouping pass
-counts in ``group_by_shard.launches``.
+counts in ``group_by_shard.launches``, K2's in ``group_by_key.launches``.
 
 Semantics are those of the reference's ``_traverse_loop``: every query
 starts at the head on level ``L-1`` and advances or descends once per
@@ -47,7 +50,8 @@ from typing import Callable, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.shard_group import check_group_cap, launch_grouping
+from repro_torch.kernels.shard_group import (check_group_cap, launch_grouping,
+                                            launch_key_grouping)
 
 QBLK = 128     # query lanes per block of the clustered launch plan
 _KEY_MAX = 2**31 - 1
@@ -293,10 +297,10 @@ def launch_walk(wrapper, symbol: str, inputs, sizes, max_steps: int,
     passes a null pointer), of the outputs node and key, then the batch,
     ``sizes`` and ``max_steps``, and the current stream.  ``grouped``, if
     given, is called with that stream first and returns the inputs to
-    launch with instead (K3 / K4 group their lanes by shard there).  Counts
-    the launch on ``wrapper`` and, when ``fat_keys`` is set (K9 runs
-    inside), in ``wrapper.fat_launches`` and ``fat_resolve.launches``; an
-    empty batch launches nothing.
+    launch with instead (K3 / K4 group their lanes by shard there, K2 and
+    K8 by key range).  Counts the launch on ``wrapper`` and, when
+    ``fat_keys`` is set (K9 runs inside), in ``wrapper.fat_launches`` and
+    ``fat_resolve.launches``; an empty batch launches nothing.
     """
     q = inputs[-1]
     if not q.numel():
@@ -358,7 +362,9 @@ def base_traverse(nxt: torch.Tensor, keys: torch.Tensor,
     """Batched base search: (node [B], cand_key [B]) int32.
 
     ``nxt`` is [L, cap] int32 and ``keys`` [cap] int32; ``fat_keys`` as
-    in ``foresight_traverse``.
+    in ``foresight_traverse``.  On the card the lanes are grouped by key
+    range first (``group_by_key``'s kernel) and walked in that order; the
+    results come back in lane order.
     """
     L, cap = nxt.shape
     q = queries.to(torch.int32)
@@ -367,8 +373,9 @@ def base_traverse(nxt: torch.Tensor, keys: torch.Tensor,
         return base_traverse_plain(nxt, keys, q, fat, max_steps=max_steps)
     _cuda_tables("base_traverse", q, nxt, keys, fat_keys=fat)
     return launch_walk(base_traverse, "base_traverse_launch",
-                       (nxt, keys, fat, q), (L, cap, _width(fat)),
-                       max_steps or traversal_bound(L, cap), fat)
+                       (nxt, keys, fat, None, q), (L, cap, _width(fat)),
+                       max_steps or traversal_bound(L, cap), fat,
+                       key_grouped_lanes((nxt, keys, fat), q))
 
 
 def fat_resolve(fused: torch.Tensor, fat_keys: torch.Tensor,
@@ -428,6 +435,17 @@ def _grouped_lanes(tables, sid, q, S: int):
     def grouped(stream):
         q_s, sid_s, perm, _ = launch_grouping(sid, q, S, stream)
         return (*tables, sid_s, perm, q_s)
+    return grouped
+
+
+def key_grouped_lanes(tables, q):
+    """K2 / K8's launch inputs on lanes grouped by key range: given the
+    stream, run ``group_by_key``'s kernel and return ``tables`` + (perm as
+    ``out_idx``, q_sorted), so lane ``i`` of the walk writes its result at
+    ``perm[i]``, its batch index."""
+    def grouped(stream):
+        q_s, perm = launch_key_grouping(q, stream)
+        return (*tables, perm, q_s)
     return grouped
 
 

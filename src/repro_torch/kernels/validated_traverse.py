@@ -10,7 +10,10 @@ key only.  The serving path for mixed-view reads
 
 The wrapper launches ``csrc/validated_traverse.cu`` on CUDA tensors and
 runs the plain version on CPU tensors; any other device raises.  It counts
-its launches in ``validated_traverse.launches``.
+its launches in ``validated_traverse.launches``.  On the card it first
+groups the lanes by key range (``kernels.shard_group.group_by_key``, as
+K2 does, counted in ``group_by_key.launches``), walks them in that order
+and stores each result at its lane's index.
 
 The step cap is the reference's fixed ``4 * L + 16``, not
 ``traversal_bound``: a lane whose path is longer stops there, in the
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch.kernels.foresight_traverse import (_check_cuda, _check_int2,
                                                     _traverse_loop,
+                                                    key_grouped_lanes,
                                                     launch_walk)
 
 
@@ -68,7 +72,8 @@ def validated_traverse(fused: torch.Tensor, auth_keys: torch.Tensor,
 
     ``fused`` is [L, cap, 2] int32 (foreseen keys may be stale), and
     ``auth_keys`` [cap] int32 the authoritative keys.  ``max_steps`` 0
-    means ``4 * L + 16``.
+    means ``4 * L + 16``.  On the card the lanes are grouped by key range
+    first and walked in that order; the results come back in lane order.
     """
     L, cap, _ = fused.shape
     q = queries.to(torch.int32)
@@ -81,8 +86,9 @@ def validated_traverse(fused: torch.Tensor, auth_keys: torch.Tensor,
                          f"got {list(auth_keys.shape)}")
     _check_int2("validated_traverse", fused)
     return launch_walk(validated_traverse, "validated_traverse_launch",
-                       (fused, auth_keys, q), (L, cap),
-                       max_steps or default_max_steps(L))
+                       (fused, auth_keys, None, q), (L, cap),
+                       max_steps or default_max_steps(L),
+                       grouped=key_grouped_lanes((fused, auth_keys), q))
 
 
 validated_traverse.launches = 0

@@ -2,7 +2,8 @@
 held against their plain versions, and fat builds and updates against the
 CPU, at node widths 6 (not a multiple of 4: the scalar tail), 8 and 128;
 the grouped dense walks (K3/K4 after ``group_by_shard``) with K9 on lane
-sets grouped every way.
+sets grouped every way; K2 with K9 on lanes grouped by key range
+(``group_by_key``), also against its launch on the lanes in batch order.
 
 Needs a CUDA card, nvcc and no JAX; every test here is marked ``gpu`` and
 skips without a card.  Run on a card machine with
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.core import sharded as tsh
 from repro_torch.core import skiplist as tsl
+from repro_torch.kernels import _build
 from repro_torch.kernels import foresight_traverse as tft
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import shard_group as tsg
@@ -251,3 +253,31 @@ def test_grouped_k3_k4_with_k9_equal_plain_and_cpu_on_card(cuda, nw,
     _same(got, dense_plain(*tables, sid, q, fat))
     _same(got, dense_plain(*tops._tables(cpu), sid.cpu(), q.cpu(),
                            cpu.shards.fat_keys))
+
+
+@pytest.mark.parametrize("traffic", ["half_hit", "zipf"])
+@pytest.mark.parametrize("nw", WIDTHS)
+def test_grouped_k2_with_k9_equals_plain_and_batch_order_on_card(cuda, nw,
+                                                                 traffic):
+    st, keys, rng = _mono(cuda, nw, False)
+    if traffic == "zipf":
+        q = keys[(rng.zipf(1.2, 2049) - 1) % len(keys)].astype(np.int32)
+    else:
+        q = _half_hit(keys, rng, 2047)
+    q = torch.from_numpy(q).to(cuda)
+    before = (tft.base_traverse.fat_launches, tft.fat_resolve.launches,
+              tsg.group_by_key.launches)
+    got = tft.base_traverse(st.nxt, st.keys, q, st.fat_keys)
+    assert (tft.base_traverse.fat_launches, tft.fat_resolve.launches,
+            tsg.group_by_key.launches) == tuple(b + 1 for b in before)
+    _same(got, tft.base_traverse_plain(st.nxt, st.keys, q, st.fat_keys))
+    L, cap = st.nxt.shape
+    flat = torch.empty_like(q), torch.empty_like(q)
+    _build.launch("base_traverse_launch", st.nxt.data_ptr(),
+                  st.keys.data_ptr(), st.fat_keys.data_ptr(), None,
+                  q.data_ptr(), flat[0].data_ptr(), flat[1].data_ptr(),
+                  q.numel(), L, cap, nw, tft.traversal_bound(L, cap),
+                  torch.cuda.current_stream().cuda_stream)
+    _same(got, flat)
+    _same(got, tft.base_traverse_plain(st.nxt.cpu(), st.keys.cpu(), q.cpu(),
+                                       st.fat_keys.cpu()))

@@ -1,4 +1,7 @@
-"""The port's CUDA kernels on the card, held against their plain versions.
+"""The port's CUDA kernels on the card, held against their plain versions:
+K1/K2, and K2's key-range grouping pass (``group_by_key``) against its
+plain version and a stable argsort, and the grouped K2 against the launch
+on the lanes in batch order.
 
 Needs a CUDA card, nvcc and no JAX; every test here is marked ``gpu`` and
 skips without a card.  Run on a card machine with
@@ -13,8 +16,10 @@ import pytest
 import torch
 
 from repro_torch.core import skiplist as tsl
+from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import foresight_traverse as tft
+from repro_torch.kernels import shard_group as tsg
 
 pytestmark = pytest.mark.gpu
 
@@ -126,3 +131,89 @@ def test_wrapper_rejects_wrong_dtype(cuda):
         tft.foresight_traverse(st.fused.long(), q)
     with pytest.raises(ValueError):
         tft.foresight_traverse(st.fused, q.cpu())
+
+
+KEY_MIN, KEY_MAX = -2**31, 2**31 - 1
+
+
+def _key_lanes(traffic, batch, seed):
+    """Queries: uniform over [0, 2^26), Zipf(1.2) by rank over 4096 keys,
+    all equal, negative, or both ends of int32 mixed in."""
+    rng = np.random.default_rng(seed)
+    if traffic == "uniform":
+        q = rng.integers(0, 1 << 26, batch)
+    elif traffic == "zipf":
+        keys = np.sort(rng.choice(1 << 26, 4096, replace=False))
+        q = keys[(rng.zipf(1.2, batch) - 1) % len(keys)]
+    elif traffic == "all_equal":
+        q = np.full(batch, 777)
+    elif traffic == "negative":
+        q = rng.integers(KEY_MIN + 1, 0, batch)
+    else:
+        q = rng.integers(KEY_MIN, KEY_MAX, batch, endpoint=True)
+        q[::3], q[1::3] = KEY_MIN, KEY_MAX
+    return q.astype(np.int32)
+
+
+@pytest.mark.parametrize("traffic", ["uniform", "zipf", "all_equal",
+                                     "negative", "extremes"])
+@pytest.mark.parametrize("batch", [1, 37, 2047, 2048, 2049, 2**20])
+def test_group_by_key_equals_plain_and_stable_argsort_on_card(cuda, batch,
+                                                              traffic):
+    q = torch.from_numpy(_key_lanes(traffic, batch, batch)).to(cuda)
+    before = tsg.group_by_key.launches
+    q_s, perm = tsg.group_by_key(q)
+    assert tsg.group_by_key.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(perm, tsg.group_by_key_plain(q))
+    assert torch.equal(perm.long(),
+                       torch.argsort(tsg.key_buckets(q), stable=True))
+    assert torch.equal(q_s, q[perm.long()])
+    cpu = tsg.group_by_key(q.cpu())
+    assert torch.equal(q_s.cpu(), cpu[0]) and torch.equal(perm.cpu(), cpu[1])
+
+
+def _ungrouped_k2(st, q, fat=None, max_steps=0):
+    """K2 on the lanes in batch order (out_idx null), through the launcher
+    directly: the launch the grouped wrapper is held against; it counts
+    nothing."""
+    L, cap = st.nxt.shape
+    node, key = torch.empty_like(q), torch.empty_like(q)
+    _build.launch("base_traverse_launch", st.nxt.data_ptr(),
+                  st.keys.data_ptr(), None if fat is None else fat.data_ptr(),
+                  None, q.data_ptr(), node.data_ptr(), key.data_ptr(),
+                  q.numel(), L, cap, 1 if fat is None else fat.shape[-1],
+                  max_steps or tft.traversal_bound(L, cap),
+                  torch.cuda.current_stream().cuda_stream)
+    return node, key
+
+
+@pytest.mark.parametrize("max_steps", [0, 9])
+@pytest.mark.parametrize("traffic", ["half_hit", "zipf", "all_equal",
+                                     "extremes"])
+def test_grouped_k2_equals_plain_and_batch_order_on_card(cuda, traffic,
+                                                         max_steps):
+    keys = _keys(4000, 11)
+    st = tsl.build(keys, keys + 1, capacity=8192, levels=14,
+                   foresight=False, seed=11, device=cuda)
+    rng = np.random.default_rng(12)
+    if traffic == "half_hit":
+        q = _queries(keys, 2049, 12)
+    elif traffic == "zipf":
+        q = keys[(rng.zipf(1.2, 2049) - 1) % len(keys)]
+    elif traffic == "all_equal":
+        q = np.full(2049, keys[2000])
+    else:
+        q = _key_lanes("extremes", 2049, 12)
+    q = torch.from_numpy(q.astype(np.int32)).to(cuda)
+    before = tft.base_traverse.launches, tsg.group_by_key.launches
+    got = tft.base_traverse(st.nxt, st.keys, q, max_steps=max_steps)
+    assert (tft.base_traverse.launches, tsg.group_by_key.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tft.base_traverse_plain(st.nxt, st.keys, q, max_steps=max_steps)
+    flat = _ungrouped_k2(st, q, max_steps=max_steps)
+    cpu = tft.base_traverse_plain(st.nxt.cpu(), st.keys.cpu(), q.cpu(),
+                                  max_steps=max_steps)
+    for g, w, f, c in zip(got, want, flat, cpu):
+        assert torch.equal(g, w) and torch.equal(g, f)
+        assert torch.equal(g.cpu(), c)

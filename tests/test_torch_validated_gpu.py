@@ -1,4 +1,6 @@
-"""K8 and the write side on the card, held against their CPU versions.
+"""K8 and the write side on the card, held against their CPU versions; the
+grouped K8 (lanes ordered by key range first) also against its launch on
+the lanes in batch order.
 
 Needs a CUDA card, nvcc and no JAX; every test here is marked ``gpu`` and
 skips without a card.  Run on a card machine with
@@ -13,6 +15,8 @@ import torch
 
 from repro_torch.core import skiplist as tsl
 from repro_torch.core.versioned import VersionedIndex
+from repro_torch.kernels import _build
+from repro_torch.kernels import shard_group as tsg
 from repro_torch.kernels import validated_traverse as tvt
 
 pytestmark = pytest.mark.gpu
@@ -146,3 +150,41 @@ def test_versioned_kernel_search_on_card_equals_cpu(cuda):
     for got, want in zip(*results):
         for name, g, w in zip(got._fields, got, want):
             assert torch.equal(g.cpu(), w), name
+
+
+def _ungrouped_k8(fused, auth, q, max_steps):
+    """K8 on the lanes in batch order (out_idx null), through the launcher
+    directly; it counts nothing."""
+    L, cap, _ = fused.shape
+    node, key = torch.empty_like(q), torch.empty_like(q)
+    _build.launch("validated_traverse_launch", fused.data_ptr(),
+                  auth.data_ptr(), None, q.data_ptr(), node.data_ptr(),
+                  key.data_ptr(), q.numel(), L, cap,
+                  max_steps or tvt.default_max_steps(L),
+                  torch.cuda.current_stream().cuda_stream)
+    return node, key
+
+
+@pytest.mark.parametrize("traffic", ["half_hit", "zipf"])
+@pytest.mark.parametrize("max_steps", [0, 9])
+@pytest.mark.parametrize("kind", ["clean", "corrupt", "lag1"])
+def test_grouped_k8_equals_plain_and_batch_order_on_card(cuda, kind,
+                                                         max_steps, traffic):
+    fused, auth, keys = _table(kind, cuda)
+    if traffic == "zipf":
+        rng = np.random.default_rng(13)
+        q = keys[(rng.zipf(1.2, 2049) - 1) % len(keys)].astype(np.int32)
+    else:
+        q = _queries(keys, 2049, 13)
+    q = torch.from_numpy(q).to(cuda)
+    before = tvt.validated_traverse.launches, tsg.group_by_key.launches
+    got = tvt.validated_traverse(fused, auth, q, max_steps=max_steps)
+    assert (tvt.validated_traverse.launches, tsg.group_by_key.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tvt.validated_traverse_plain(fused, auth, q, max_steps=max_steps)
+    flat = _ungrouped_k8(fused, auth, q, max_steps)
+    cpu = tvt.validated_traverse_plain(fused.cpu(), auth.cpu(), q.cpu(),
+                                       max_steps=max_steps)
+    for g, w, f, c in zip(got, want, flat, cpu):
+        assert torch.equal(g, w) and torch.equal(g, f)
+        assert torch.equal(g.cpu(), c)
