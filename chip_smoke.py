@@ -10,9 +10,9 @@ Phases, one JSON line each:
    source, all started together);
 3. small check: foresight and base skiplists (n=4000, cap=8192, L=14)
    built on the card equal their CPU builds, and K1 / K2 equal their plain
-   versions on a half-hit, half-miss batch; K2 runs its key-range grouping
-   pass (``group_by_key``), which equals its plain version, and equals its
-   launch on the lanes in batch order;
+   versions on a half-hit, half-miss batch; each runs its key-range
+   grouping pass (``group_by_key``), which equals its plain version, and
+   equals its launch on the lanes in batch order;
 4. small update check, same size: a 2000-op mixed stream through
    ``apply_ops`` on the card equals the CPU run in every state array and
    result (both variants) and leaves its input unchanged; K8 (grouped by
@@ -28,10 +28,10 @@ Phases, one JSON line each:
    a numpy membership oracle; the kernel held against its plain version on
    the same queries; kernel, plain and ``torch.searchsorted`` times
    (median of CUDA-event timings) and the byte and sector bounds of the
-   batch's paths.  K2 groups its lanes by key range first: the pass is
-   held against its plain version and a stable argsort and timed alone
-   (``group_ms``, beside ``torch.sort``), the walk is also timed on the
-   lanes in batch order (``ungrouped_ms``, checked equal) and on lanes
+   batch's paths.  K1 and K2 group their lanes by key range first: the
+   pass is held against its plain version and a stable argsort and timed
+   alone (``group_ms``, beside ``torch.sort``), the walk is also timed on
+   the lanes in batch order (``ungrouped_ms``, checked equal) and on lanes
    grouped beforehand (``grouped_walk_ms``), and five calls are profiled
    (the pass's device time against the walk's);
 6. updates and versioned reads at the same size: the foresight build in a
@@ -94,12 +94,12 @@ Phases, one JSON line each:
    delete case (plain, minimum lane, node emptied) and equals the CPU;
    ``apply_ops_sharded(rebalance=True)`` on Zipf inserts, ``range_scan``,
    ``range_scan_sharded`` and ``check_fat_invariant`` equal the CPU; K1
-   with K9 at B = 6 (the scalar tail of the run compare) equals its plain
-   version;
+   with K9 at B = 6 (rows not 16-byte aligned), 33 (not a multiple of 4)
+   and 256 (two passes of K9's row compare) equals its plain version;
 10. the fat layout at the paper's size: the same 2^25 keys packed into
    runs (``benchmarks/common.py:26-41``, ``benchmarks/fig_fat_node.py``):
    B = 128 (2^19 nodes, capacity 2^21, L = 27), both variants, and B = 8
-   (capacity 2^25), foresight, through ``search_kernel`` (K1/K2 + K9; K2
+   (capacity 2^25), foresight, through ``search_kernel`` (K1/K2 + K9,
    grouped by key range, and timed in batch order as in 5); B = 128 over
    S = 64 shards (2^15 node slots a shard, L = 21), both traffics through
    the dense and clustered paths (K3-K6 + K9, K7; the dense walk grouped,
@@ -109,14 +109,16 @@ Phases, one JSON line each:
    ``fat_vals``; 256 updates of fig3's upd=50%
    mix through ``apply_ops`` (B = 128 monolith) and ``apply_ops_sharded``
    against the host oracle, then ``check_fat_invariant`` and an unchanged
-   input; K9 alone (``fat_resolve``) checked and timed on the final
-   predecessors; times, bounds from a replay that counts distinct records
-   plus distinct runs x B x 4 bytes, path lengths, peak memory;
+   input; K9 alone (``fat_resolve``, at B = 128 and 8) checked and timed
+   on the final predecessors; times, bounds from a replay that counts
+   distinct records plus distinct runs x B x 4 bytes, path lengths, peak
+   memory;
 11. the ``kernels`` line: every ported kernel with its main-path launches
    (K5/K6's include those K10 made), the fat launches of K1-K6 as rows of
    their own, ``fat_resolve``, ``search_kernel_mesh`` (K10),
    ``group_by_shard`` (its launches on the four sharded main paths) and
-   ``group_by_key`` (its launches on the K2, K8 and fat K2 main paths).
+   ``group_by_key`` (its launches on the K1, K2, K8 and fat K1/K2 main
+   paths).
 
 Then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check, build or launch raises, and the script exits non-zero.
@@ -348,8 +350,9 @@ def build_kernels() -> None:
 
 def monolith_launch(name: str, tables, q: torch.Tensor, fat_keys=None,
                     max_steps: int = 0, out_idx=None) -> tuple:
-    """K2 (``base_traverse``) or K8 (``validated_traverse``) launched
-    through ``_build.launch`` directly, without the wrapper's key grouping:
+    """K1 (``foresight_traverse``), K2 (``base_traverse``) or K8
+    (``validated_traverse``) launched through ``_build.launch`` directly,
+    without the wrapper's key grouping:
     lane i walks q[i] and writes at ``out_idx[i]``.  ``out_idx`` None is the
     launch on the lanes in batch order; ``group_by_key``'s (q_sorted, perm)
     as (q, out_idx) is the grouped walk without its pass.  It counts no
@@ -365,9 +368,8 @@ def monolith_launch(name: str, tables, q: torch.Tensor, fat_keys=None,
                       key.data_ptr(), q.numel(), L, cap,
                       max_steps or vt.default_max_steps(L), stream)
         return node, key
-    nxt, keys = tables
-    L, cap = nxt.shape
-    _build.launch("base_traverse_launch", nxt.data_ptr(), keys.data_ptr(),
+    L, cap = tables[0].shape[:2]
+    _build.launch(f"{name}_launch", *(t.data_ptr() for t in tables),
                   None if fat_keys is None else fat_keys.data_ptr(), idx,
                   q.data_ptr(), node.data_ptr(), key.data_ptr(), q.numel(), L,
                   cap, 1 if fat_keys is None else fat_keys.shape[-1],
@@ -375,9 +377,14 @@ def monolith_launch(name: str, tables, q: torch.Tensor, fat_keys=None,
     return node, key
 
 
+WALK_KERNELS = {"foresight_traverse": "foresight_kernel",
+                "base_traverse": "base_kernel",
+                "validated_traverse": "validated_kernel"}
+
+
 def split_times(name: str, tables, q: torch.Tensor, fat_keys=None) -> dict:
-    """K2's or K8's call taken apart, by CUDA events: the walk on the lanes
-    in batch order (``ungrouped_ms``, checked equal to the wrapper's
+    """K1's, K2's or K8's call taken apart, by CUDA events: the walk on the
+    lanes in batch order (``ungrouped_ms``, checked equal to the wrapper's
     answer) and on lanes grouped beforehand (``grouped_walk_ms``, the call
     without its pass); and a profile of five calls, pass against walk."""
     fat = () if fat_keys is None else (fat_keys,)
@@ -388,7 +395,7 @@ def split_times(name: str, tables, q: torch.Tensor, fat_keys=None) -> dict:
     check(max_abs_err(want, monolith_launch(name, tables, q_s, fat_keys,
                                             out_idx=perm)) == 0,
           f"{name} on lanes grouped beforehand equals the wrapper")
-    walk = "base_kernel" if name == "base_traverse" else "validated_kernel"
+    walk = WALK_KERNELS[name]
     prof = device_breakdown(lambda: KERNELS[name][0](*tables, q, *fat),
                             calls=5, walk=walk)
     return {
@@ -455,13 +462,13 @@ def small_check() -> None:
         err = max_abs_err(got, want)
         check(err == 0, f"{kernel_name(st)} equals its plain version")
         report[kernel_name(st)] = {"max_abs_err": err}
-        if not foresight:                  # K2 groups its lanes by key
-            check(sg.group_by_key.launches == before[1] + 1,
-                  "base_traverse ran group_by_key")
-            check(max_abs_err(got, monolith_launch(
-                "base_traverse", table_args(st), q)) == 0,
-                  "grouped K2 equals its batch-order launch")
-            report["group_by_key_err"] = check_key_grouping(q, "small")
+        # K1 and K2 group their lanes by key
+        check(sg.group_by_key.launches == before[1] + 1,
+              f"{kernel_name(st)} ran group_by_key")
+        check(max_abs_err(got, monolith_launch(
+            kernel_name(st), table_args(st), q)) == 0,
+              f"grouped {kernel_name(st)} equals its batch-order launch")
+    report["group_by_key_err"] = check_key_grouping(q, "small")
     emit(report)
 
 
@@ -705,8 +712,8 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
     lap("main_path")
     for name in ("validated_traverse", "foresight_traverse"):
         check(launches[name] >= 1, f"versioned path launched {name}")
-    check(launches["group_by_key"] == len(qs),
-          "versioned path ran group_by_key once a K8 call")
+    check(launches["group_by_key"] == 2 * len(qs),
+          "versioned path ran group_by_key once a K8 and a K1 call")
 
     check(np.array_equal(results.cpu().numpy(), want_results),
           "every apply_ops result equals the oracle")
@@ -811,11 +818,11 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
 
 def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
     """Build at the paper's size, run the main path on each traffic, check,
-    time, bound.  K2 groups its lanes by key range: it is also timed on the
-    lanes in batch order (``ungrouped_ms``, checked equal) and the pass
-    alone (``group_ms``), and five calls are profiled (``split_times``).
-    Returns {traffic: its kernels-line row}; a K2 row also carries the
-    pass's row under ``group``."""
+    time, bound.  K1 and K2 group their lanes by key range: each is also
+    timed on the lanes in batch order (``ungrouped_ms``, checked equal) and
+    the pass alone (``group_ms``), and five calls are profiled
+    (``split_times``).  Returns {traffic: its kernels-line row}; a row
+    also carries the pass's row under ``group``."""
     dev = torch.device(DEVICE)
     keys = torch.from_numpy(keys_np).to(dev)
     qs = {name: torch.from_numpy(q).to(dev) for name, q in traffic.items()}
@@ -837,9 +844,8 @@ def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
     launches = read_launches()
     name = kernel_name(st)
     check(launches[name] >= 1, f"main path launched {name}")
-    if not foresight:
-        check(launches["group_by_key"] == len(qs),
-              "main path ran group_by_key once a K2 call")
+    check(launches["group_by_key"] == len(qs),
+          f"main path ran group_by_key once a {name} call")
 
     wrapper, plain, source, replaces = KERNELS[name]
     tables = table_args(st)
@@ -855,13 +861,11 @@ def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
         plain_ms = time_ms(lambda: plain(*tables, q), PLAIN_REPS)
         library_ms = time_ms(lambda: torch.searchsorted(keys, q),
                              KERNEL_REPS)
-        extra = {}
-        if not foresight:                   # the batch-order launch, the pass
-            g_err = check_key_grouping(q, f"full size {tname}")
-            extra = {**split_times(name, tables, q),
-                     "group": {**key_group_times(q), "max_abs_err": g_err}}
-            extra["grouped_over_ungrouped_ms"] = \
-                kernel_ms / extra["ungrouped_ms"]
+        # the batch-order launch, the pass
+        g_err = check_key_grouping(q, f"full size {tname}")
+        extra = {**split_times(name, tables, q),
+                 "group": {**key_group_times(q), "max_abs_err": g_err}}
+        extra["grouped_over_ungrouped_ms"] = kernel_ms / extra["ungrouped_ms"]
 
         fp = path_footprint(tuple(t[None] for t in tables), q)
         io_bytes = q.numel() * 4 * 3             # queries in, node + key out
@@ -876,7 +880,7 @@ def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "sector_bound_ms": sector_ms,
-            **({"ungrouped_ms": extra["ungrouped_ms"]} if extra else {})}
+            "ungrouped_ms": extra["ungrouped_ms"]}
         emit({"phase": "full_size", "traffic": tname, "n": FULL_N,
               "levels": FULL_LEVELS, "capacity": FULL_CAP,
               "batch": q.numel(),
@@ -893,14 +897,13 @@ def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
               "sector_bytes": fp["sector_bytes"],
               "bound_share": bound_ms / kernel_ms,
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
-        if extra:
-            rows[tname]["group"] = {
-                "name": "group_by_key", "route": "cuda",
-                "source": SHARD_GROUP_CU,
-                "replaces": KERNELS["group_by_key"][3],
-                "launches": launches["group_by_key"], **extra["group"],
-                "bound_by": "bytes", "sector_bound_ms": extra["group"][
-                    "bound_ms"]}
+        rows[tname]["group"] = {
+            "name": "group_by_key", "route": "cuda",
+            "source": SHARD_GROUP_CU,
+            "replaces": KERNELS["group_by_key"][3],
+            "launches": launches["group_by_key"], **extra["group"],
+            "bound_by": "bytes", "sector_bound_ms": extra["group"][
+                "bound_ms"]}
         del fp, got
     del st, res, tables
     torch.cuda.empty_cache()
@@ -1729,7 +1732,7 @@ def fat_case_stream(width: int, seed: int):
 def small_fat_check() -> None:
     """The fat layout on the card equals the CPU, at B = 8 and 128, both
     variants; K1-K6 with K9 equal their plain versions; every update case
-    runs; K9's scalar tail at B = 6."""
+    runs; K1 + K9 at B = 6, 33 and 256, K9's tiling edges."""
     rng = np.random.default_rng(SEED)
     keys = small_keys()
     keys_sh = np.sort(rng.choice(1 << 22, 1500, replace=False)
@@ -1859,17 +1862,19 @@ def small_fat_check() -> None:
                                f"fat{width} rebalancing apply_ops_sharded")
         report[f"fat{width}_shards_after_zipf"] = st[DEVICE].n_shards
 
-    # K9's scalar tail: a width that is not a multiple of 4
-    args = dict(capacity=sl.node_slots_for(2 * SMALL["n"], 6) + 4,
-                levels=14, node_width=6, seed=SEED)
-    st = sl.build(keys, keys + 1, device=DEVICE, **args)
-    check_same_state(st, sl.build(keys, keys + 1, device="cpu", **args),
-                     "fat6 build, card equals CPU")
-    q, = on(DEVICE, np.concatenate([rng.choice(keys, 2048), rng.integers(
-        0, 1 << 22, 2048)]).astype(np.int32))
-    for max_steps in (0, 9):
-        check_fat_kernel("foresight_traverse", fat_tables(st), (q,), report,
-                         "foresight6", max_steps)
+    # K9's tiling edges: rows not 16-byte aligned (6), a width that is not
+    # a multiple of 4 (33), two passes of the row compare (256)
+    for width in (6, 33, 256):
+        args = dict(capacity=sl.node_slots_for(2 * SMALL["n"], width) + 4,
+                    levels=14, node_width=width, seed=SEED)
+        st = sl.build(keys, keys + 1, device=DEVICE, **args)
+        check_same_state(st, sl.build(keys, keys + 1, device="cpu", **args),
+                         f"fat{width} build, card equals CPU")
+        q, = on(DEVICE, np.concatenate([rng.choice(keys, 2048), rng.integers(
+            0, 1 << 22, 2048)]).astype(np.int32))
+        for max_steps in (0, 9):
+            check_fat_kernel("foresight_traverse", fat_tables(st), (q,),
+                             report, f"foresight{width}", max_steps)
     report["seconds"] = time.perf_counter() - t0
     emit(report)
 
@@ -1970,11 +1975,10 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
     kernel_ms = time_ms(lambda: wrapper(*walk, q, fat), KERNEL_REPS)
     plain_ms = time_ms(lambda: plain(*walk, q, fat), PLAIN_REPS)
     library_ms = time_ms(lambda: torch.searchsorted(keys, q), KERNEL_REPS)
-    extra = {}
-    if not foresight:            # K2 + K9 groups by key: the batch order too
-        split = split_times(name, walk, q, fat)
-        extra["ungrouped_ms"] = split["ungrouped_ms"]
-        report.update(split, group_by_key_launches=launches["group_by_key"])
+    # K1/K2 + K9 group by key: the batch order too
+    split = split_times(name, walk, q, fat)
+    extra = {"ungrouped_ms": split["ungrouped_ms"]}
+    report.update(split, group_by_key_launches=launches["group_by_key"])
     lap("timing")
     io_bytes = q.numel() * 4 * 3             # queries in, node + key out
     bytes_ms = (fp["distinct_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
@@ -1998,16 +2002,17 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
         sector_bound_ms=(fp["sector_bytes"] + io_bytes)
         / HBM_BYTES_PER_S * 1e3)
 
-    if foresight and width == 128:
+    if foresight:
         # K9 alone on the batch's final predecessors: what the postlude
         # costs beside the walk.
         x = fp["x"]
         got = ft.fat_resolve(st.fused, fat, x, q)
         err9 = max_abs_err(got, ft.fat_resolve_plain(st.fused, fat, x, q))
-        check(err9 == 0, "K9 alone equals its plain version")
+        check(err9 == 0,
+              f"K9 alone equals its plain version (width {width})")
         check(all(torch.equal(a, b) for a, b in
                   zip(got, wrapper(*walk, q, fat))),
-              "K9 alone equals the postlude of K1")
+              f"K9 alone equals the postlude of K1 (width {width})")
         cand, ck = st.fused[0, x.long()].unbind(1)
         owner = torch.where((ck == q) | (x == 0), cand, x).long()
         rows = fat[owner]                        # [batch, B] owner runs
@@ -2040,7 +2045,7 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
         lap("k9_alone")
     report.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                   stage_s=stage_s, seconds=time.perf_counter() - t_phase)
-    emit({k: v for k, v in report.items() if k not in ("row", "k9")})
+    emit({k: v for k, v in report.items() if k != "row"})
     del st, res, tables, walk, fat, flat_vals, keys, fp
     torch.cuda.empty_cache()
     return report
@@ -2071,18 +2076,22 @@ def main() -> None:
     traffic = {"uniform": q_np, "zipf": zipf_queries(keys_np, FULL_BATCH)}
     mono = {foresight: full_size(keys_np, traffic, foresight)
             for foresight in (True, False)}
-    emit({"phase": "ratio",      # K1 over K2: grouped, and in batch order
+    # K1 over K2: both grouped, and both in batch order
+    emit({"phase": "ratio",
           "foresight_over_base_ms": {
               name: {"grouped": mono[True][name]["ms"]
                      / mono[False][name]["ms"],
-                     "batch_order": mono[True][name]["ms"]
+                     "batch_order": mono[True][name]["ungrouped_ms"]
                      / mono[False][name]["ungrouped_ms"]}
               for name in traffic}})
     versioned, versioned_groups = versioned_full_size(keys_np, traffic)
     # The kernels line takes traffic A's rows; the pass's launches are those
-    # of every path that ran it (K2's, K8's, and the fat K2's below).
+    # of every path that ran it (K1's, K2's, K8's, and the fat K1's and
+    # K2's below).
     key_row = mono[False]["uniform"].pop("group")
-    mono[False]["zipf"].pop("group")
+    key_row["launches"] += mono[True]["uniform"].pop("group")["launches"]
+    for foresight in (True, False):
+        mono[foresight]["zipf"].pop("group")
     key_row["launches"] += versioned_groups
     rows = [mono[True]["uniform"], mono[False]["uniform"],
             versioned["uniform"], key_row]
@@ -2146,7 +2155,8 @@ def main() -> None:
         group_row["launches"] += g["launches"]
         group_row["max_abs_err"] = max(group_row["max_abs_err"],
                                        g["max_abs_err"])
-    key_row["launches"] += fat[(128, False)]["group_by_key_launches"]
+    key_row["launches"] += sum(f["group_by_key_launches"]
+                               for f in fat.values())
     k9 = fat[(128, True)]["k9"]
     k9["launches"] = sum(r["launches"] for r in fat_rows)
     check(k9["launches"] > 0, "fat_resolve (K9) launched on the fat paths")
@@ -2158,6 +2168,7 @@ def main() -> None:
           "fat8_over_scalar_k1_ms": fat[(8, True)]["ms"]
           / by_name["foresight_traverse"]["ms"],
           "k9_alone_over_k1_fat128_ms": fat[(128, True)]["k9_share_of_k1_fat"],
+          "k9_alone_over_k1_fat8_ms": fat[(8, True)]["k9_share_of_k1_fat"],
           "fat_over_scalar_ms": {
               r["name"]: r["ms"] / by_name[r["name"].split("/")[0]]["ms"]
               for r in fat_rows}})

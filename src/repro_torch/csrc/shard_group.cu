@@ -11,7 +11,7 @@
 //       bucket S taking every lane whose id is outside [0, S); the order the
 //       reference's clustered plan gets from a stable argsort
 //       (repro/kernels/ops.py cluster_queries).
-//   group_by_key_launch (K2/K8): the lanes of a monolithic batch by key
+//   group_by_key_launch (K1/K2/K8): the lanes of a monolithic batch by key
 //       bucket (u(q) - lo) >> shift, u(q) = q ^ 0x80000000 (int32 onto
 //       uint32, order kept), lo the batch's least u and shift the least that
 //       leaves at most 2^13 = 8192 buckets.  The bucket is monotone in

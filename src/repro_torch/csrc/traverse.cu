@@ -1,9 +1,10 @@
 // Batched skiplist traversal kernels for Hopper (sm_90a), plain C interface.
 //
 // Replace the Pallas TPU kernels of repro/kernels/foresight_traverse.py:
-//   foresight_traverse_launch  -> foresight_traverse (_foresight_kernel), K1
-//   base_traverse_launch       -> base_traverse (_base_kernel), K2, on lanes
-//                                 grouped by key range (shard_group.cu)
+//   foresight_traverse_launch  -> foresight_traverse (_foresight_kernel), K1,
+//                                 on lanes grouped by key range
+//                                 (shard_group.cu)
+//   base_traverse_launch       -> base_traverse (_base_kernel), K2, the same
 //   foresight_sharded_launch   -> foresight_traverse_sharded
 //                                 (_foresight_sharded_kernel), K3, on lanes
 //                                 grouped by shard_group.cu
@@ -45,22 +46,24 @@
 // the same records of that shard's upper levels, which L1 and L2 serve
 // after the first miss.  What still bounds the grouped walk is the rest of
 // each lane's chain of dependent misses below the shared levels.  out_idx
-// == nullptr keeps lane i's result at i (K1, K5/K6, and the ungrouped
-// launch that is timed beside the grouped one).
+// == nullptr keeps lane i's result at i (K5/K6, K9 alone, and the
+// ungrouped K1/K2/K3/K4 launch that is timed beside the grouped one).
 //
-// K2 walks lanes grouped by key range.  A monolithic list has no shard to
-// group by, so the wrapper first runs group_by_key (shard_group.cu): a
-// stable counting sort of the lanes by the bucket (u(q) - lo) >> shift, at
-// most 8192 buckets over the batch's own key span (uniform 2^20 lanes over
-// 2^25 keys: ~128 lanes, four warps, a bucket of ~4096 index keys).  Lane i
-// walks q_sorted[i] and writes at out_idx[i] = perm[i], as in K3/K4.  A
+// K1 and K2 walk lanes grouped by key range.  A monolithic list has no
+// shard to group by, so the wrapper first runs group_by_key
+// (shard_group.cu): a stable counting sort of the lanes by the bucket
+// (u(q) - lo) >> shift, at most 8192 buckets over the batch's own key span
+// (uniform 2^20 lanes over 2^25 keys: ~128 lanes, four warps, a bucket of
+// ~4096 index keys).  Lane i walks q_sorted[i] and writes at out_idx[i] =
+// perm[i], as in K3/K4.  A
 // warp's lanes then share their path down to about level log2(4096) = 12
 // of 27, roughly half of each lane's steps: there one record load serves the
 // warp, and the records below lie in one narrow window of node ids a level
 // (nodes are allocated in key order), so even the steps a lane takes alone
 // hit sectors its neighbours fetched.  The bucket order changes no lane's
 // walk, only which lanes share a warp, so the results are the batch-order
-// launch's bit for bit, step cap included.
+// launch's bit for bit, step cap included.  K1 takes the same pass as K2:
+// its one fused load a step gains from shared records as K2's two do.
 //
 // The foresight step is ONE 8-byte load of the (next_ptr, next_key) record,
 // an int2 through the read-only path: the paper's fused load.  The base step
@@ -68,10 +71,10 @@
 //
 // What bounds them: on an index far larger than the 50 MB L2 each step is a
 // dependent miss to HBM, so a thread's time is its path length times the
-// miss latency; the card's byte rate is not the limit.  Grouping (K2-K4)
+// miss latency; the card's byte rate is not the limit.  Grouping (K1-K4)
 // cuts the misses a warp makes, not the chain a lane waits on; more walks
 // in flight a thread and the top levels in shared memory are the levers
-// left.
+// left (K1-K4 grouped; K5/K6 walk the clustered plan's shard-sorted lanes).
 //
 // Record and byte offsets are computed in 64 bits: at 27 levels x 2^26 slots
 // the record index reaches 1.8e9 and the byte offset 14.5e9, and a stack of
@@ -84,12 +87,23 @@
 // the owner's B lanes below q; the result is (owner * B + min(pos, B-1), the
 // key there, or KEY_MAX when pos == B).  It is an exact count over every
 // lane, as the reference computes it, not a binary search: that holds on
-// any row.  One thread reads its owner's row, as int4 loads while the row
-// is 16-byte aligned and then a scalar tail (B = 6 takes the tail).  What
-// bounds it: one more dependent miss (the row, 512 B at B = 128, four 128-B
-// lines) after the walk's; a warp-cooperative compare (one coalesced row a
-// step, __ballot_sync / __popc) is later work.  Element ids are int32, as
-// in the reference: the wrappers refuse cap * B above 2^31 - 1.
+// any row.  The warp resolves its lanes' rows together (fat_resolve below):
+// g threads a row read it with coalesced loads, 32 / g rows a step, so one
+// load instruction takes whole lines of one or a few rows rather than 16 B
+// of 32 rows (B = 128: one row a step, four 128-B lines; B = 8: 16 rows).
+// A row that is not 16-byte aligned (B = 6, a shifted table) takes 4-byte
+// loads of the same elements.  What bounds it: one more dependent miss
+// (the row, 512 B at B = 128) after the walk's, taken one warp step at a
+// time, and the walk's occupancy: K9's registers count against the whole
+// kernel, so it keeps nothing but a count across steps (tilings that held
+// 2-32 int4 a thread, a prefetch of every lane's row, a pipelined next
+// step and one step for all lanes that share a row (__match_any_sync) all
+// took more registers or time on the H100).  Where many lanes of a warp
+// share a row (Zipf traffic, lanes grouped by key), the per-thread compare
+// it replaced read the shared row once for all of them in one instruction;
+// here each lane takes a step of its own, so such batches run slower.
+// Element ids are int32, as in the reference: the wrappers refuse
+// cap * B above 2^31 - 1.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -99,6 +113,7 @@ namespace {
 constexpr int kBlock = 256;
 constexpr int kQblk = 128;   // lanes per block of a clustered plan (QBLK)
 constexpr int kKeyMax = 0x7fffffff;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // K1's walk over one table fused [levels, cap, 2]: the level-0 record of the
 // final predecessor, which is left in x.
@@ -132,26 +147,84 @@ __device__ __forceinline__ int2 base_walk(const int* __restrict__ nxt,
   return make_int2(ptr, __ldg(keys + (size_t)ptr));
 }
 
-// K9 on one table fat [cap, width]: (element-flat node, key) of query q whose
-// walk ended at x with level-0 record cand.
+// K9, warp-cooperative.  EVERY lane of the warp calls it together (no lane
+// may have returned: the kernels keep lanes past the batch or not served as
+// need == false, and a full-mask ballot needs all 32).  A lane with need
+// holds (query q, final predecessor x, its level-0 record cand) and the base
+// `fat` of its table [cap, width]; it gets (element-flat node, key).  A lane
+// without need gets (0, 0) and is never resolved.
+//
+// Tiling: a row is read by g threads (the least power of two with 4 * g >=
+// width, at most 32), thread j taking elements 4j..4j+3 of each 4 * g, so
+// one load instruction covers 16 * g contiguous bytes of a row; 32 / g rows
+// are resolved a step (B = 128: one row, four whole 128-B lines; B = 8:
+// sixteen 32-B rows).  Step by step the warp's slots take the lowest lanes
+// still pending, broadcast their row and query (__shfl_sync), load the rows
+// (int4 on a 16-byte-aligned row, else 4-byte loads of the same elements),
+// count each thread's elements < q, sum the count over the group (one
+// __reduce_add_sync) and hand it to the requesting lane.  Last, each lane
+// reads its key at min(pos, width - 1), from a line the warp has just read.
+// Nothing is held across steps but the count, so the walks that call K9
+// keep the registers they had with the per-thread compare it replaced
+// (31-36 a thread; ptxas -v).
 __device__ __forceinline__ int2 fat_resolve(const int* __restrict__ fat,
                                             int width, int q, int x,
-                                            int2 cand) {
+                                            int2 cand, bool need) {
   const int owner = (cand.y == q || x == 0) ? cand.x : x;
   const int* row = fat + (size_t)owner * (size_t)width;
+  const int lane = threadIdx.x & 31;
+  int g = 1;
+  while (g < 32 && 4 * g < width) g <<= 1;
+  const int rows = 32 / g;                      // rows resolved a step
+  const int slot = lane / g, sub = lane & (g - 1);
+  const unsigned gmask = g == 32 ? kFullMask
+                                 : ((1u << g) - 1u) << (slot * g);
   int pos = 0;
-  int j = 0;
-  if ((reinterpret_cast<uintptr_t>(row) & 15) == 0) {
-    const int4* row4 = reinterpret_cast<const int4*>(row);
-    for (; j + 4 <= width; j += 4) {
-      const int4 v = __ldg(row4 + j / 4);
-      pos += (v.x < q) + (v.y < q) + (v.z < q) + (v.w < q);
+  unsigned pending = __ballot_sync(kFullMask, need);
+  while (pending) {
+    unsigned m = pending;               // slot s serves the s-th lowest lane
+    for (int s = 0; s < slot; ++s) m &= m - 1;
+    const bool active = m != 0;
+    const int src = active ? __ffs(m) - 1 : lane;
+    const int* r = reinterpret_cast<const int*>(__shfl_sync(
+        kFullMask, reinterpret_cast<unsigned long long>(row), src));
+    const int rq = __shfl_sync(kFullMask, q, src);
+    const bool vec = (reinterpret_cast<uintptr_t>(r) & 15) == 0;
+    int cnt = 0;
+    for (int e = 4 * sub; active && e < width; e += 4 * g) {
+      const int n = min(4, width - e);          // elements held, 1..4
+      int4 v;
+      if (n == 4 && vec) {
+        v = __ldg(reinterpret_cast<const int4*>(r + e));
+      } else {
+        v.x = __ldg(r + e);
+        v.y = n > 1 ? __ldg(r + e + 1) : 0;
+        v.z = n > 2 ? __ldg(r + e + 2) : 0;
+        v.w = n > 3 ? __ldg(r + e + 3) : 0;
+      }
+      cnt += (v.x < rq) + (n > 1 && v.y < rq) + (n > 2 && v.z < rq) +
+             (n > 3 && v.w < rq);
     }
+    cnt = __reduce_add_sync(gmask, cnt);                 // the group's sum
+    // lane i was served by the slot of its rank among the pending lanes
+    const int rank = __popc(pending & ((1u << lane) - 1u));
+    const int got = __shfl_sync(kFullMask, cnt, min(rank, rows - 1) * g);
+    if (((pending >> lane) & 1u) && rank < rows) pos = got;
+    for (int s = 0; s < rows; ++s) pending &= pending - 1;
   }
-  for (; j < width; ++j) pos += __ldg(row + j) < q;
+  if (!need) return make_int2(0, 0);
   const int pos_c = min(pos, width - 1);
   return make_int2(owner * width + pos_c,
                    pos < width ? __ldg(row + pos_c) : kKeyMax);
+}
+
+// Lane i's result goes to out_idx[i], or to i when out_idx is null.
+__device__ __forceinline__ void store(const int* __restrict__ out_idx,
+                                      long long i, int* __restrict__ node,
+                                      int* __restrict__ key, int2 r) {
+  const long long o = out_idx == nullptr ? i : (long long)__ldg(out_idx + i);
+  node[o] = r.x;
+  key[o] = r.y;
 }
 
 // Is lane i, of shard s, served by its clustered block's slots?
@@ -168,23 +241,27 @@ __device__ __forceinline__ bool served_by_plan(const int* __restrict__ bsids,
 
 // In every kernel, fat == nullptr is the scalar layout; otherwise K9 runs
 // on the walk's result, in the lane's shard's runs (offset s * cap * width).
+// No lane returns early: K9 needs the whole warp.  A lane past the batch,
+// or not served, walks nothing and passes need == false to K9.
+// K1: lane i walks queries[i] and writes its result at out_idx[i], or at i
+// when out_idx is null.
 __global__ void __launch_bounds__(kBlock)
 foresight_kernel(const int2* __restrict__ fused, const int* __restrict__ fat,
+                 const int* __restrict__ out_idx,
                  const int* __restrict__ queries, int* __restrict__ node,
                  int* __restrict__ key, long long batch, int levels,
                  long long cap, int width, long long max_steps) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= batch) return;
-  const int q = queries[i];
-  int x;
-  int2 r = foresight_walk(fused, q, levels, cap, max_steps, x);
-  if (fat != nullptr) r = fat_resolve(fat, width, q, x, r);
-  node[i] = r.x;
-  key[i] = r.y;
+  const bool live = i < batch;
+  const int q = live ? queries[i] : 0;
+  int x = 0;
+  int2 r = make_int2(0, 0);
+  if (live) r = foresight_walk(fused, q, levels, cap, max_steps, x);
+  if (fat != nullptr) r = fat_resolve(fat, width, q, x, r, live);
+  if (live) store(out_idx, i, node, key, r);
 }
 
-// K2: lane i walks queries[i] and writes its result at out_idx[i], or at i
-// when out_idx is null.
+// K2: the same, two dependent loads a step.
 __global__ void __launch_bounds__(kBlock)
 base_kernel(const int* __restrict__ nxt, const int* __restrict__ keys,
             const int* __restrict__ fat, const int* __restrict__ out_idx,
@@ -192,14 +269,13 @@ base_kernel(const int* __restrict__ nxt, const int* __restrict__ keys,
             int* __restrict__ key, long long batch, int levels, long long cap,
             int width, long long max_steps) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= batch) return;
-  const int q = queries[i];
-  int x;
-  int2 r = base_walk(nxt, keys, q, levels, cap, max_steps, x);
-  if (fat != nullptr) r = fat_resolve(fat, width, q, x, r);
-  const long long o = out_idx == nullptr ? i : (long long)__ldg(out_idx + i);
-  node[o] = r.x;
-  key[o] = r.y;
+  const bool live = i < batch;
+  const int q = live ? queries[i] : 0;
+  int x = 0;
+  int2 r = make_int2(0, 0);
+  if (live) r = base_walk(nxt, keys, q, levels, cap, max_steps, x);
+  if (fat != nullptr) r = fat_resolve(fat, width, q, x, r, live);
+  if (live) store(out_idx, i, node, key, r);
 }
 
 // K3 and K5: bsids == nullptr is the dense K3, every in-range lane served.
@@ -216,22 +292,21 @@ foresight_sharded_kernel(const int2* __restrict__ fused,
                          long long batch, int shards, int k_slots, int levels,
                          long long cap, int width, long long max_steps) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= batch) return;
-  const int s = sids[i];
+  const bool live = i < batch;
+  const int s = live ? sids[i] : -1;
+  const bool served = live && s >= 0 && s < shards &&
+      (bsids == nullptr || served_by_plan(bsids, ndist, i, s, k_slots));
+  const int q = served ? queries[i] : 0;
+  int x = 0;
   int2 r = make_int2(0, 0);
-  if (s >= 0 && s < shards &&
-      (bsids == nullptr || served_by_plan(bsids, ndist, i, s, k_slots))) {
-    const int q = queries[i];
-    int x;
+  if (served)
     r = foresight_walk(fused + (size_t)s * (size_t)levels * (size_t)cap, q,
                        levels, cap, max_steps, x);
-    if (fat != nullptr)
-      r = fat_resolve(fat + (size_t)s * (size_t)cap * (size_t)width, width,
-                      q, x, r);
-  }
-  const long long o = out_idx == nullptr ? i : (long long)__ldg(out_idx + i);
-  node[o] = r.x;
-  key[o] = r.y;
+  if (fat != nullptr)
+    r = fat_resolve(fat + (size_t)(served ? s : 0) * (size_t)cap *
+                              (size_t)width,
+                    width, q, x, r, served);
+  if (live) store(out_idx, i, node, key, r);
 }
 
 // K4 and K6: bsids == nullptr is the dense K4.
@@ -247,23 +322,22 @@ base_sharded_kernel(const int* __restrict__ nxt, const int* __restrict__ keys,
                     int k_slots, int levels, long long cap, int width,
                     long long max_steps) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= batch) return;
-  const int s = sids[i];
+  const bool live = i < batch;
+  const int s = live ? sids[i] : -1;
+  const bool served = live && s >= 0 && s < shards &&
+      (bsids == nullptr || served_by_plan(bsids, ndist, i, s, k_slots));
+  const int q = served ? queries[i] : 0;
+  int x = 0;
   int2 r = make_int2(0, 0);
-  if (s >= 0 && s < shards &&
-      (bsids == nullptr || served_by_plan(bsids, ndist, i, s, k_slots))) {
-    const int q = queries[i];
-    int x;
+  if (served)
     r = base_walk(nxt + (size_t)s * (size_t)levels * (size_t)cap,
                   keys + (size_t)s * (size_t)cap, q, levels, cap, max_steps,
                   x);
-    if (fat != nullptr)
-      r = fat_resolve(fat + (size_t)s * (size_t)cap * (size_t)width, width,
-                      q, x, r);
-  }
-  const long long o = out_idx == nullptr ? i : (long long)__ldg(out_idx + i);
-  node[o] = r.x;
-  key[o] = r.y;
+  if (fat != nullptr)
+    r = fat_resolve(fat + (size_t)(served ? s : 0) * (size_t)cap *
+                              (size_t)width,
+                    width, q, x, r, served);
+  if (live) store(out_idx, i, node, key, r);
 }
 
 // K9 alone, from given final predecessors xs over the level-0 records of a
@@ -274,12 +348,12 @@ fat_resolve_kernel(const int2* __restrict__ fused, const int* __restrict__ fat,
                    int* __restrict__ node, int* __restrict__ key,
                    long long batch, int width) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= batch) return;
-  const int x = xs[i];
-  const int2 r = fat_resolve(fat, width, queries[i], x,
-                             __ldg(fused + (size_t)x));
-  node[i] = r.x;
-  key[i] = r.y;
+  const bool live = i < batch;
+  const int x = live ? xs[i] : 0;
+  const int q = live ? queries[i] : 0;
+  const int2 cand = live ? __ldg(fused + (size_t)x) : make_int2(0, 0);
+  const int2 r = fat_resolve(fat, width, q, x, cand, live);
+  if (live) store(nullptr, i, node, key, r);
 }
 
 unsigned grid_for(long long batch) {
@@ -293,18 +367,20 @@ extern "C" {
 // Each launcher enqueues on `stream` and returns cudaGetLastError().
 // `batch` must be positive.  `fat` is null on the scalar layout (`width` is
 // then 1 and unused).
+// K1 and K2: lane i walks queries[i] and writes its result at out_idx[i];
+// out_idx may be null (lane i writes at i).
 int foresight_traverse_launch(const void* fused, const void* fat,
-                              const void* queries, void* node, void* key,
-                              long long batch, int levels, long long cap,
-                              int width, long long max_steps, void* stream) {
+                              const void* out_idx, const void* queries,
+                              void* node, void* key, long long batch,
+                              int levels, long long cap, int width,
+                              long long max_steps, void* stream) {
   foresight_kernel<<<grid_for(batch), kBlock, 0, (cudaStream_t)stream>>>(
-      (const int2*)fused, (const int*)fat, (const int*)queries, (int*)node,
-      (int*)key, batch, levels, cap, width, max_steps);
+      (const int2*)fused, (const int*)fat, (const int*)out_idx,
+      (const int*)queries, (int*)node, (int*)key, batch, levels, cap, width,
+      max_steps);
   return (int)cudaGetLastError();
 }
 
-// K2: lane i walks queries[i] and writes its result at out_idx[i]; out_idx
-// may be null (lane i writes at i).
 int base_traverse_launch(const void* nxt, const void* keys, const void* fat,
                          const void* out_idx, const void* queries, void* node,
                          void* key, long long batch, int levels,

@@ -30,11 +30,11 @@ _LL = ctypes.c_longlong
 # Every walk launcher takes its input pointers (queries last), the node and
 # key output pointers, the batch, its sizes, max_steps and the stream.  Every
 # pointer is c_void_p, or ctypes would cut it to 32 bits; ``fat`` may be
-# null (the scalar layout), and so may ``out_idx`` (K2, K8 and the dense
-# sharded walks).
+# null (the scalar layout), and so may ``out_idx`` (K1, K2, K8 and the
+# dense sharded walks).
 _SIGNATURES = {
-    # fused, fat, queries | levels, cap, width
-    "foresight_traverse_launch": [_P] * 5 + [_LL, _I, _LL, _I, _LL, _P],
+    # fused, fat, out_idx, queries | levels, cap, width
+    "foresight_traverse_launch": [_P] * 6 + [_LL, _I, _LL, _I, _LL, _P],
     # nxt, keys, fat, out_idx, queries | levels, cap, width
     "base_traverse_launch": [_P] * 7 + [_LL, _I, _LL, _I, _LL, _P],
     # fused, auth_keys, out_idx, queries | levels, cap

@@ -3,12 +3,12 @@
 Port of the kernels of ``repro.kernels.foresight_traverse``:
 
 * ``foresight_traverse`` (K1): ONE read of the fused ``(ptr, key)`` record
-  per step.
+  per step.  On the card it first groups the lanes by key range
+  (``kernels.shard_group.group_by_key``, a CUDA counting sort by key
+  bucket), walks them in that order and stores each result at its lane's
+  index.
 * ``base_traverse`` (K2): TWO dependent reads per step, the pointer and
-  then the pointee's key; the paper's baseline.  On the card it first
-  groups the lanes by key range (``kernels.shard_group.group_by_key``, a
-  CUDA counting sort by key bucket), walks them in that order and stores
-  each result at its lane's index.
+  then the pointee's key; the paper's baseline.  Grouped as K1.
 * ``foresight_traverse_sharded`` / ``base_traverse_sharded`` (K3 / K4):
   the same walks over stacked shard tables, each lane in the shard its
   ``shard_ids`` entry names.  On the card they first group the lanes by
@@ -22,8 +22,10 @@ Port of the kernels of ``repro.kernels.foresight_traverse``:
   ``fat_keys`` (``[cap, B]``, or ``[S, cap, B]`` for K3-K6), every kernel
   above ends by finding the query's run and its position in it, and
   returns the element-flat id ``owner * B + lane`` and the key there
-  (``KEY_MAX`` past the run).  ``fat_resolve`` launches the postlude
-  alone, on given final predecessors, to check and time it.
+  (``KEY_MAX`` past the run).  On the card a warp resolves its lanes'
+  runs together, a few coalesced rows at a time.  ``fat_resolve``
+  launches the postlude alone, on given final predecessors, to check and
+  time it.
 
 Each wrapper launches its kernel (``csrc/traverse.cu``) on CUDA tensors and
 runs its plain version on CPU tensors; any other device raises.  Each has a
@@ -31,7 +33,8 @@ runs its plain version on CPU tensors; any other device raises.  Each has a
 else, so a run can show its lookups went through the kernel; a launch
 with ``fat_keys`` also counts in the wrapper's ``fat_launches`` and in
 ``fat_resolve.launches``, since K9 ran inside it.  K3 / K4's grouping pass
-counts in ``group_by_shard.launches``, K2's in ``group_by_key.launches``.
+counts in ``group_by_shard.launches``, K1's and K2's in
+``group_by_key.launches``.
 
 Semantics are those of the reference's ``_traverse_loop``: every query
 starts at the head on level ``L-1`` and advances or descends once per
@@ -297,8 +300,8 @@ def launch_walk(wrapper, symbol: str, inputs, sizes, max_steps: int,
     passes a null pointer), of the outputs node and key, then the batch,
     ``sizes`` and ``max_steps``, and the current stream.  ``grouped``, if
     given, is called with that stream first and returns the inputs to
-    launch with instead (K3 / K4 group their lanes by shard there, K2 and
-    K8 by key range).  Counts the launch on ``wrapper`` and, when
+    launch with instead (K3 / K4 group their lanes by shard there, K1, K2
+    and K8 by key range).  Counts the launch on ``wrapper`` and, when
     ``fat_keys`` is set (K9 runs inside), in ``wrapper.fat_launches`` and
     ``fat_resolve.launches``; an empty batch launches nothing.
     """
@@ -342,7 +345,9 @@ def foresight_traverse(fused: torch.Tensor, queries: torch.Tensor,
     ``fused`` is [L, cap, 2] int32; ``max_steps`` 0 means
     ``traversal_bound(L, cap)``.  With ``fat_keys [cap, B]`` the walk ends
     in K9: ``node`` is element-flat (``owner * B + lane``) and
-    ``cand_key`` the key there.
+    ``cand_key`` the key there.  On the card the lanes are grouped by key
+    range first (``group_by_key``'s kernel) and walked in that order; the
+    results come back in lane order.
     """
     L, cap, _ = fused.shape
     q = queries.to(torch.int32)
@@ -351,8 +356,9 @@ def foresight_traverse(fused: torch.Tensor, queries: torch.Tensor,
         return foresight_traverse_plain(fused, q, fat, max_steps=max_steps)
     _cuda_tables("foresight_traverse", q, fused, fat_keys=fat, fused=fused)
     return launch_walk(foresight_traverse, "foresight_traverse_launch",
-                       (fused, fat, q), (L, cap, _width(fat)),
-                       max_steps or traversal_bound(L, cap), fat)
+                       (fused, fat, None, q), (L, cap, _width(fat)),
+                       max_steps or traversal_bound(L, cap), fat,
+                       key_grouped_lanes((fused, fat), q))
 
 
 def base_traverse(nxt: torch.Tensor, keys: torch.Tensor,
@@ -361,10 +367,8 @@ def base_traverse(nxt: torch.Tensor, keys: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched base search: (node [B], cand_key [B]) int32.
 
-    ``nxt`` is [L, cap] int32 and ``keys`` [cap] int32; ``fat_keys`` as
-    in ``foresight_traverse``.  On the card the lanes are grouped by key
-    range first (``group_by_key``'s kernel) and walked in that order; the
-    results come back in lane order.
+    ``nxt`` is [L, cap] int32 and ``keys`` [cap] int32; ``fat_keys``, and
+    the grouping on the card, as in ``foresight_traverse``.
     """
     L, cap = nxt.shape
     q = queries.to(torch.int32)
@@ -439,10 +443,10 @@ def _grouped_lanes(tables, sid, q, S: int):
 
 
 def key_grouped_lanes(tables, q):
-    """K2 / K8's launch inputs on lanes grouped by key range: given the
-    stream, run ``group_by_key``'s kernel and return ``tables`` + (perm as
-    ``out_idx``, q_sorted), so lane ``i`` of the walk writes its result at
-    ``perm[i]``, its batch index."""
+    """K1, K2 and K8's launch inputs on lanes grouped by key range: given
+    the stream, run ``group_by_key``'s kernel and return ``tables`` +
+    (perm as ``out_idx``, q_sorted), so lane ``i`` of the walk writes its
+    result at ``perm[i]``, its batch index."""
     def grouped(stream):
         q_s, perm = launch_key_grouping(q, stream)
         return (*tables, perm, q_s)

@@ -14,10 +14,11 @@ stably: ``key_buckets`` maps each query to ``(u - lo) >> shift`` with ``u``
 the query as an unsigned 32-bit value (``q + 2^31``), ``lo`` the batch's
 least ``u`` and ``shift`` the least that leaves at most
 ``MAX_KEY_BUCKETS`` (8192) buckets.  The bucket is monotone in the key, so
-each bucket is one key range.  K2 and K8 (``base_traverse``,
-``validated_traverse``) run it first and store each result at its lane's
-batch index; on the card ``lo`` and ``shift`` are found by a min/max pass
-and the sort takes two digit passes, all on the device.
+each bucket is one key range.  K1, K2 and K8 (``foresight_traverse``,
+``base_traverse``, ``validated_traverse``) run it first and store each
+result at its lane's batch index; on the card ``lo`` and ``shift`` are
+found by a min/max pass and the sort takes two digit passes, all on the
+device.
 
 ``group_by_shard_plain`` and ``group_by_key_plain`` are the same functions
 in plain torch: a stable ``argsort`` of the bucket ids (and, by shard,
@@ -183,8 +184,8 @@ def group_by_key(queries: torch.Tensor):
 
 def launch_key_grouping(q: torch.Tensor, stream: int):
     """``group_by_key``'s launch on checked, non-empty CUDA lanes, on
-    ``stream`` of the current device (K2 and K8 call it inside their own
-    device context, with their stream)."""
+    ``stream`` of the current device (K1, K2 and K8 call it inside their
+    own device context, with their stream)."""
     B = q.numel()
     table = (_KEY_RADIX + 1) * -(-B // GROUP_TILE)  # a digit pass's table
     # One allocation: q_sorted, perm, then scratch: the first digit pass's

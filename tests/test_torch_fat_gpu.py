@@ -1,9 +1,13 @@
 """The fat-node layout on the card: K1-K6 with the K9 postlude, and K9 alone,
 held against their plain versions, and fat builds and updates against the
-CPU, at node widths 6 (not a multiple of 4: the scalar tail), 8 and 128;
-the grouped dense walks (K3/K4 after ``group_by_shard``) with K9 on lane
-sets grouped every way; K2 with K9 on lanes grouped by key range
-(``group_by_key``), also against its launch on the lanes in batch order.
+CPU, at node widths 6 (rows not 16-byte aligned), 8, 33 (not a multiple
+of 4), 128 and 256 (more than one pass of K9's warp-cooperative row
+compare); on partial warps (batch 1, 31, 33), on K5/K6 blocks with
+unserved lanes, on owners that are the head, the tail or the last row, and
+on a table shifted off 16-byte alignment; the grouped dense walks (K3/K4
+after ``group_by_shard``) with K9 on lane sets grouped every way; K1 and K2
+with K9 on lanes grouped by key range (``group_by_key``), also against
+their launch on the lanes in batch order.
 
 Needs a CUDA card, nvcc and no JAX; every test here is marked ``gpu`` and
 skips without a card.  Run on a card machine with
@@ -22,7 +26,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import shard_group as tsg
 
 pytestmark = pytest.mark.gpu
-WIDTHS = [6, 8, 128]
+WIDTHS = [6, 8, 33, 128, 256]
 SPAN = 1 << 16
 
 
@@ -96,32 +100,72 @@ def test_k1_k2_with_k9_equal_plain_on_card(cuda, nw, foresight):
                          max_steps=max_steps))
 
 
+@pytest.mark.parametrize("batch", [1, 31, 33, 777])
 @pytest.mark.parametrize("nw", WIDTHS)
-def test_k9_alone_equals_plain_on_card(cuda, nw):
+def test_k9_alone_equals_plain_on_card(cuda, nw, batch):
     st, keys, rng = _mono(cuda, nw, True)
-    q = torch.from_numpy(_half_hit(keys, rng, 777)).to(cuda)
+    q = torch.from_numpy(_half_hit(keys, rng, batch)[-batch:]).to(cuda)
     x = torch.randint(0, int(st.bump), q.shape, dtype=torch.int32,
                       device=cuda)
     x[::5] = 0                                    # the head
+    x[1::7] = 1                                   # the tail
+    x[2::9] = st.capacity - 1                     # the last row, unused
+    q[3::9] = 0             # an unused slot's record is (0, 0): owner head
+    x[3::9] = st.capacity - 2
     before = tft.fat_resolve.launches
     got = tft.fat_resolve(st.fused, st.fat_keys, x, q)
     assert tft.fat_resolve.launches == before + 1
     _same(got, tft.fat_resolve_plain(st.fused, st.fat_keys, x, q))
 
 
-@pytest.mark.parametrize("nw", [8, 128])
-def test_k9_on_rows_not_16_byte_aligned(cuda, nw):
-    """A fat table one int past a 16-byte boundary takes the scalar loads
-    on every row; the answers are the same."""
-    st, keys, rng = _mono(cuda, nw, True)
+@pytest.mark.parametrize("foresight", [True, False])
+@pytest.mark.parametrize("nw", WIDTHS)
+def test_k9_on_rows_not_16_byte_aligned(cuda, nw, foresight):
+    """A fat table one int past a 16-byte boundary takes the 4-byte loads
+    on every row; the answers are the same, in K1 / K2 and K9 alone."""
+    st, keys, rng = _mono(cuda, nw, foresight)
     buf = torch.empty(st.fat_keys.numel() + 1, dtype=torch.int32,
                       device=cuda)
     shifted = buf[1:].view(st.fat_keys.shape)
     shifted.copy_(st.fat_keys)
     assert shifted.data_ptr() % 16 == 4
     q = torch.from_numpy(_half_hit(keys, rng, 500)).to(cuda)
-    _same(tft.foresight_traverse(st.fused, q, shifted),
-          tft.foresight_traverse_plain(st.fused, q, st.fat_keys))
+    if foresight:
+        _same(tft.foresight_traverse(st.fused, q, shifted),
+              tft.foresight_traverse_plain(st.fused, q, st.fat_keys))
+        x = torch.randint(0, int(st.bump), q.shape, dtype=torch.int32,
+                          device=cuda)
+        _same(tft.fat_resolve(st.fused, shifted, x, q),
+              tft.fat_resolve_plain(st.fused, st.fat_keys, x, q))
+    else:
+        _same(tft.base_traverse(st.nxt, st.keys, q, shifted),
+              tft.base_traverse_plain(st.nxt, st.keys, q, st.fat_keys))
+
+
+@pytest.mark.parametrize("batch", [1, 31, 33])
+@pytest.mark.parametrize("nw", WIDTHS)
+def test_k1_to_k4_with_k9_on_partial_warps_on_card(cuda, nw, batch):
+    """A batch that leaves lanes of its last warp empty: K9 runs on the
+    warp's live lanes only."""
+    for foresight in (True, False):
+        st, keys, rng = _mono(cuda, nw, foresight)
+        q = torch.from_numpy(_half_hit(keys, rng, batch)[-batch:]).to(cuda)
+        kernel, plain = ((tft.foresight_traverse,
+                          tft.foresight_traverse_plain) if foresight else
+                         (tft.base_traverse, tft.base_traverse_plain))
+        _same(kernel(*_tables(st), q, st.fat_keys),
+              plain(*_tables(st), q, st.fat_keys))
+        shl, keys, rng = _sharded(cuda, nw, foresight, 9)
+        tables, fat = tops._tables(shl), shl.shards.fat_keys
+        q = torch.from_numpy(_half_hit(keys, rng, batch)[-batch:]).to(cuda)
+        sid = tsh.route(shl.boundaries, q)
+        sid[::3] = -1                               # not served
+        dense, dense_plain = ((tft.foresight_traverse_sharded,
+                               tft.foresight_traverse_sharded_plain)
+                              if foresight else
+                              (tft.base_traverse_sharded,
+                               tft.base_traverse_sharded_plain))
+        _same(dense(*tables, sid, q, fat), dense_plain(*tables, sid, q, fat))
 
 
 @pytest.mark.parametrize("foresight", [True, False])
@@ -255,6 +299,43 @@ def test_grouped_k3_k4_with_k9_equal_plain_and_cpu_on_card(cuda, nw,
                            cpu.shards.fat_keys))
 
 
+def _batch_order(st, q):
+    """K1 or K2 with K9 on the lanes in batch order (out_idx null), through
+    the launcher directly; it counts nothing."""
+    L, cap = st.levels, st.capacity
+    node, key = torch.empty_like(q), torch.empty_like(q)
+    tables = ((st.fused.data_ptr(),) if st.foresight
+              else (st.nxt.data_ptr(), st.keys.data_ptr()))
+    _build.launch("foresight_traverse_launch" if st.foresight
+                  else "base_traverse_launch", *tables,
+                  st.fat_keys.data_ptr(), None, q.data_ptr(),
+                  node.data_ptr(), key.data_ptr(), q.numel(), L, cap,
+                  st.fat_keys.shape[-1], tft.traversal_bound(L, cap),
+                  torch.cuda.current_stream().cuda_stream)
+    return node, key
+
+
+@pytest.mark.parametrize("traffic", ["half_hit", "zipf"])
+@pytest.mark.parametrize("nw", WIDTHS)
+def test_grouped_k1_with_k9_equals_plain_and_batch_order_on_card(cuda, nw,
+                                                                 traffic):
+    st, keys, rng = _mono(cuda, nw, True)
+    if traffic == "zipf":
+        q = keys[(rng.zipf(1.2, 2049) - 1) % len(keys)].astype(np.int32)
+    else:
+        q = _half_hit(keys, rng, 2047)
+    q = torch.from_numpy(q).to(cuda)
+    before = (tft.foresight_traverse.fat_launches, tft.fat_resolve.launches,
+              tsg.group_by_key.launches)
+    got = tft.foresight_traverse(st.fused, q, st.fat_keys)
+    assert (tft.foresight_traverse.fat_launches, tft.fat_resolve.launches,
+            tsg.group_by_key.launches) == tuple(b + 1 for b in before)
+    _same(got, tft.foresight_traverse_plain(st.fused, q, st.fat_keys))
+    _same(got, _batch_order(st, q))
+    _same(got, tft.foresight_traverse_plain(st.fused.cpu(), q.cpu(),
+                                            st.fat_keys.cpu()))
+
+
 @pytest.mark.parametrize("traffic", ["half_hit", "zipf"])
 @pytest.mark.parametrize("nw", WIDTHS)
 def test_grouped_k2_with_k9_equals_plain_and_batch_order_on_card(cuda, nw,
@@ -271,13 +352,6 @@ def test_grouped_k2_with_k9_equals_plain_and_batch_order_on_card(cuda, nw,
     assert (tft.base_traverse.fat_launches, tft.fat_resolve.launches,
             tsg.group_by_key.launches) == tuple(b + 1 for b in before)
     _same(got, tft.base_traverse_plain(st.nxt, st.keys, q, st.fat_keys))
-    L, cap = st.nxt.shape
-    flat = torch.empty_like(q), torch.empty_like(q)
-    _build.launch("base_traverse_launch", st.nxt.data_ptr(),
-                  st.keys.data_ptr(), st.fat_keys.data_ptr(), None,
-                  q.data_ptr(), flat[0].data_ptr(), flat[1].data_ptr(),
-                  q.numel(), L, cap, nw, tft.traversal_bound(L, cap),
-                  torch.cuda.current_stream().cuda_stream)
-    _same(got, flat)
+    _same(got, _batch_order(st, q))
     _same(got, tft.base_traverse_plain(st.nxt.cpu(), st.keys.cpu(), q.cpu(),
                                        st.fat_keys.cpu()))

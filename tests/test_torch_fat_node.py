@@ -1,5 +1,6 @@
 """The port's fat-node layout (``node_width`` > 1) against repro's, bit for
-bit, on the CPU, at node widths 8 and 128.
+bit, on the CPU, at node widths 8 and 128 (the K1-K6 + K9 comparisons also
+at ``EDGE_WIDTHS``).
 
 Twins of ``tests/test_fat_node.py`` (all but the mesh case, which waits
 for the mesh's own slice; the slow hypothesis sweep runs as a seeded
@@ -34,6 +35,9 @@ jft = importlib.import_module("repro.kernels.foresight_traverse")
 
 SPAN = 1 << 16
 WIDTHS = [8, 128]
+# Where the card's row tiling of K9 has its edges: rows not 16-byte
+# aligned (6), not a multiple of 4 (33), wider than one pass (256).
+EDGE_WIDTHS = [6, 33, 256]
 QBLK = tft.QBLK
 KEY_MAX = 2**31 - 1
 
@@ -357,7 +361,7 @@ def test_fat_insert_of_key_max_upserts_the_tail_like_repro():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("foresight", [False, True])
-@pytest.mark.parametrize("nw", WIDTHS)
+@pytest.mark.parametrize("nw", WIDTHS + EDGE_WIDTHS)
 def test_kernel_monolithic_matches_scalar(nw, foresight):
     keys, rng = _keys(700, seed=5)
     scalar = tsl.build(keys, keys * 3, capacity=2048, levels=8,
@@ -430,7 +434,7 @@ def test_kernel_sharded_matches_scalar(nw, cluster):
 
 
 @pytest.mark.parametrize("foresight", [True, False])
-@pytest.mark.parametrize("nw", WIDTHS)
+@pytest.mark.parametrize("nw", WIDTHS + EDGE_WIDTHS)
 def test_plain_sharded_and_clustered_k9_match_pallas(nw, foresight):
     """K3-K6 with K9 on S = 9 (a split), at the default cap and at
     ``max_steps=9``, and with a plan cut to one slot (unserved lanes)."""

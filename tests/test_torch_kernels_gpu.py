@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, held against their plain versions:
-K1/K2, and K2's key-range grouping pass (``group_by_key``) against its
-plain version and a stable argsort, and the grouped K2 against the launch
-on the lanes in batch order.
+K1/K2, and their key-range grouping pass (``group_by_key``) against its
+plain version and a stable argsort, and the grouped K1 and K2 against their
+launch on the lanes in batch order.
 
 Needs a CUDA card, nvcc and no JAX; every test here is marked ``gpu`` and
 skips without a card.  Run on a card machine with
@@ -214,6 +214,42 @@ def test_grouped_k2_equals_plain_and_batch_order_on_card(cuda, traffic,
     flat = _ungrouped_k2(st, q, max_steps=max_steps)
     cpu = tft.base_traverse_plain(st.nxt.cpu(), st.keys.cpu(), q.cpu(),
                                   max_steps=max_steps)
+    for g, w, f, c in zip(got, want, flat, cpu):
+        assert torch.equal(g, w) and torch.equal(g, f)
+        assert torch.equal(g.cpu(), c)
+
+
+def _ungrouped_k1(st, q, max_steps=0):
+    """K1 on the lanes in batch order (out_idx null), through the launcher
+    directly; it counts nothing."""
+    L, cap, _ = st.fused.shape
+    node, key = torch.empty_like(q), torch.empty_like(q)
+    _build.launch("foresight_traverse_launch", st.fused.data_ptr(), None,
+                  None, q.data_ptr(), node.data_ptr(), key.data_ptr(),
+                  q.numel(), L, cap, 1,
+                  max_steps or tft.traversal_bound(L, cap),
+                  torch.cuda.current_stream().cuda_stream)
+    return node, key
+
+
+@pytest.mark.parametrize("max_steps", [0, 9])
+@pytest.mark.parametrize("batch", [1, 31, 33, 1000])
+def test_grouped_k1_equals_plain_and_batch_order_on_card(cuda, batch,
+                                                         max_steps):
+    keys = _keys(4000, 13)
+    st = tsl.build(keys, keys + 1, capacity=8192, levels=14,
+                   foresight=True, seed=13, device=cuda)
+    q = _queries(keys, batch, batch)
+    q[-1:] = [2**31 - 1]                       # the tail sentinel's key
+    q = torch.from_numpy(q).to(cuda)
+    before = tft.foresight_traverse.launches, tsg.group_by_key.launches
+    got = tft.foresight_traverse(st.fused, q, max_steps=max_steps)
+    assert (tft.foresight_traverse.launches, tsg.group_by_key.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tft.foresight_traverse_plain(st.fused, q, max_steps=max_steps)
+    flat = _ungrouped_k1(st, q, max_steps=max_steps)
+    cpu = tft.foresight_traverse_plain(st.fused.cpu(), q.cpu(),
+                                       max_steps=max_steps)
     for g, w, f, c in zip(got, want, flat, cpu):
         assert torch.equal(g, w) and torch.equal(g, f)
         assert torch.equal(g.cpu(), c)

@@ -1,11 +1,13 @@
-"""The key-range grouping of K2 and K8, held to numpy and repro on the CPU.
+"""The key-range grouping of K1, K2 and K8, held to numpy and repro on the
+CPU.
 
 ``group_by_key_plain`` (``repro_torch.kernels.shard_group``) orders a
 monolithic batch's lanes by key bucket exactly as numpy's stable argsort of
 the same bucket ids does, and each bucket is one key range.  Walking the
 grouped lanes with the plain K2 / K8 and storing each result at its lane's
 batch index gives the batch-order walk and the reference's Pallas kernel
-(``repro.kernels.foresight_traverse.base_traverse``,
+(``repro.kernels.foresight_traverse.foresight_traverse`` /
+``base_traverse``,
 ``repro.kernels.validated_traverse.validated_traverse``, interpret mode),
 bit for bit, lanes cut off at the step cap included.  The CUDA pass itself
 is held to this plain version on the card
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from repro.core import skiplist as sl
-from repro.kernels.foresight_traverse import base_traverse
+from repro.kernels.foresight_traverse import base_traverse, foresight_traverse
 from repro_torch.core import skiplist as tsl
 from repro_torch.kernels import foresight_traverse as tft
 from repro_torch.kernels import shard_group as tsg
@@ -114,16 +116,19 @@ def _eq(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("foresight", [True, False])
 @pytest.mark.parametrize("max_steps", [0, 9])
 @pytest.mark.parametrize("traffic", ["half_hit", "zipf", "all_equal"])
 def test_grouped_k2_scattered_back_equals_batch_order_and_repro(traffic,
-                                                                max_steps):
+                                                                max_steps,
+                                                                foresight):
+    """K2 (``foresight=False``) and K1 (``True``) on grouped lanes."""
     rng = np.random.default_rng(11)
     keys = np.sort(rng.choice(SPAN, 1000, replace=False)).astype(np.int32)
     js = sl.build(jnp.asarray(keys), jnp.asarray(keys + 1), capacity=2048,
-                  levels=12, foresight=False, seed=11)
-    ts = tsl.build(keys, keys + 1, capacity=2048, levels=12, foresight=False,
-                   seed=11, device="cpu")
+                  levels=12, foresight=foresight, seed=11)
+    ts = tsl.build(keys, keys + 1, capacity=2048, levels=12,
+                   foresight=foresight, seed=11, device="cpu")
     if traffic == "half_hit":
         q = np.concatenate([rng.choice(keys, 150), rng.integers(0, SPAN, 150)])
     elif traffic == "zipf":
@@ -131,12 +136,23 @@ def test_grouped_k2_scattered_back_equals_batch_order_and_repro(traffic,
     else:
         q = np.full(300, keys[500])
     q = q.astype(np.int32)
-    got = _scattered_back(lambda qs: tft.base_traverse_plain(
-        ts.nxt, ts.keys, qs, max_steps=max_steps), torch.from_numpy(q))
-    _eq(got, tft.base_traverse(ts.nxt, ts.keys, torch.from_numpy(q),
-                               max_steps=max_steps))
-    _eq(got, _padded(lambda qp: base_traverse(js.nxt, js.keys, qp,
-                                              max_steps=max_steps), q))
+    if foresight:
+        plain = lambda qs: tft.foresight_traverse_plain(  # noqa: E731
+            ts.fused, qs, max_steps=max_steps)
+        wrapper = tft.foresight_traverse(ts.fused, torch.from_numpy(q),
+                                         max_steps=max_steps)
+        ref = _padded(lambda qp: foresight_traverse(
+            js.fused, qp, max_steps=max_steps), q)
+    else:
+        plain = lambda qs: tft.base_traverse_plain(  # noqa: E731
+            ts.nxt, ts.keys, qs, max_steps=max_steps)
+        wrapper = tft.base_traverse(ts.nxt, ts.keys, torch.from_numpy(q),
+                                    max_steps=max_steps)
+        ref = _padded(lambda qp: base_traverse(js.nxt, js.keys, qp,
+                                               max_steps=max_steps), q)
+    got = _scattered_back(plain, torch.from_numpy(q))
+    _eq(got, wrapper)
+    _eq(got, ref)
 
 
 @pytest.mark.parametrize("max_steps", [0, 9])
