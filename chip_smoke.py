@@ -45,8 +45,9 @@ Phases, one JSON line each:
 7. small sharded check (n=1500 keys in [0, 2^22), vals 3*keys, S=8,
    L=12, both variants): ``build_sharded``, ``split_shard``,
    ``merge_shards`` and ``repack`` on the card equal the CPU; on S=9 (a
-   split) K3-K6 equal their plain versions on a half-hit batch and on the
-   straddle stream, which takes K7's split and equals the CPU; an
+   split) K3-K6 equal their plain versions (K5/K6, the tile-sorted walk,
+   also their plan-order launch) on a half-hit batch and on the straddle
+   stream, which takes K7's split and equals the CPU; an
    undersized ``k_shards`` raises; ``apply_ops_sharded(rebalance=True)``
    on 4 batches of 32 Zipf inserts equals the CPU in every array, result
    and shard count;
@@ -56,8 +57,9 @@ Phases, one JSON line each:
    and 8), ``search_mesh``, ``search_kernel_mesh`` (K10) and
    ``search_kernel(mesh=)`` on the card equal the CPU in every state
    array, found, vals and node; K5/K6 on the mesh's plan equal their plain
-   versions; ``apply_ops_mesh(rebalance=True)`` on an ``empty_mesh_index``
-   under 4 batches of 32 Zipf inserts, and ``pad_shards`` with the
+   versions and their plan-order launch; ``apply_ops_mesh(rebalance=True)``
+   on an ``empty_mesh_index`` under 4 batches of 32 Zipf inserts, and
+   ``pad_shards`` with the
    in-place split, merge, watermark pass and guard, equal the CPU in every
    array, result, shard count and ``DeviceLoadStats``;
 8. the sharded engine at the paper's size, once per variant: the same
@@ -73,7 +75,10 @@ Phases, one JSON line each:
    by shard first (``group_by_shard``): the pass is held against its plain
    version and a stable argsort and timed alone (``group_ms``, beside
    ``torch.sort``), and the dense walk is also timed without the pass,
-   on the lanes in batch order (``ungrouped_ms``);
+   on the lanes in batch order (``ungrouped_ms``).  K5/K6 sort each tile
+   of plan lanes by key inside their one launch: each is also timed in
+   the plan's lane order (``plan_order_ms``, the launch the tile sort
+   replaced), checked equal, and one call of each is profiled;
 8b. the mesh index at the paper's size, after each sharded variant (its
    stack freed first): ``build_mesh_index(n_devices=1, n_shards=64)``
    equal to ``build_sharded``'s build (fingerprint); both traffics
@@ -82,8 +87,9 @@ Phases, one JSON line each:
    through ``apply_ops_mesh`` (rebalancing off) against the host oracle,
    then ``check_mesh_invariant`` and ``DeviceLoadStats``; times of the
    whole path, its exchange (route, sort, both ``all_to_all``s), its
-   K5/K6 launch and the same index's ``search_kernel_sharded``, the
-   launch's bound and ``torch.searchsorted``;
+   K5/K6 launch (beside their plan-order launch, checked equal, and a
+   profile of one launch) and the same index's ``search_kernel_sharded``,
+   the launch's bound and ``torch.searchsorted``;
 9. small fat check, node widths B = 8 and 128, both variants: a fat
    ``build`` (n=4000), ``build_sharded`` (n=1500, S=8), ``split_shard`` to
    S=9, ``merge_shards`` and ``repack`` on the card equal the CPU; K1-K6
@@ -964,6 +970,10 @@ def check_sharded_kernels(shl, q, report: dict, label: str) -> None:
         err = max_abs_err(got, plain(*shard_tables(shl), *args))
         check(err == 0, f"{name} equals its plain version ({label})")
         report[f"{name}_{label}_err"] = err
+        if name == clus:
+            check(all(torch.equal(a, b) for a, b in zip(
+                clustered_walk(shard_tables(shl), args, None), got)),
+                f"{name} equals its plan-order launch ({label})")
 
 
 def small_sharded_check() -> None:
@@ -1076,6 +1086,45 @@ def ungrouped_walk(shl: shd.ShardedSkipList, sid: torch.Tensor,
                   ft.traversal_bound(L, cap),
                   torch.cuda.current_stream().cuda_stream)
     return node, key
+
+
+def clustered_walk(tables, args, fat_keys) -> tuple:
+    """K5 / K6 in the plan's lane order, one thread a lane (the launch the
+    tile sort replaced, kept only as this yardstick), through the launcher
+    directly; it counts no launch.  ``args`` are the wrapper's
+    (block_sids, ndist, sid_sorted, q_sorted)."""
+    bs, _, _, q = args
+    node, key = torch.empty_like(q), torch.empty_like(q)
+    S, L, cap = tables[0].shape[:3]
+    v = "foresight" if len(tables) == 1 else "base"
+    _build.launch(f"{v}_clustered_plan_order_launch",
+                  *(t.data_ptr() for t in tables),
+                  None if fat_keys is None else fat_keys.data_ptr(),
+                  *(t.data_ptr() for t in args), node.data_ptr(),
+                  key.data_ptr(), q.numel(), S, bs.shape[1], L, cap,
+                  1 if fat_keys is None else fat_keys.shape[-1],
+                  ft.traversal_bound(L, cap),
+                  torch.cuda.current_stream().cuda_stream)
+    return node, key
+
+
+def clustered_times(tables, args, fat_keys, name: str) -> dict:
+    """K5 / K6's wrapper (the tile-sorted walk) checked equal to the
+    plan-order launch and timed beside it; the tile size, and profiles of
+    one call (one kernel, no pass) and of the plan-order launch."""
+    wrapper = KERNELS[name][0]
+    fat = () if fat_keys is None else (fat_keys,)
+    got = wrapper(*tables, *args, *fat)
+    check(all(torch.equal(a, b) for a, b in
+              zip(clustered_walk(tables, args, fat_keys), got)),
+          f"{name} equals its plan-order launch")
+    return {"plan_order_ms": time_ms(
+                lambda: clustered_walk(tables, args, fat_keys), KERNEL_REPS),
+            "tile_lanes": ft.CLUSTERED_TILE,
+            "device_breakdown": device_breakdown(
+                lambda: wrapper(*tables, *args, *fat), calls=5),
+            "plan_order_device_breakdown": device_breakdown(
+                lambda: clustered_walk(tables, args, fat_keys), calls=5)}
 
 
 def check_grouping(sid: torch.Tensor, q: torch.Tensor, what: str) -> int:
@@ -1244,6 +1293,9 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
                     lambda: wrapper(*shard_tables(shl), *args, fatk))
                 t[kname]["ungrouped_profile"] = device_breakdown(
                     lambda: ungrouped_walk(shl, sid, q, fatk))
+            else:           # the plan-order launch, in the same run
+                t[kname].update(clustered_times(shard_tables(shl), args,
+                                                fatk, kname))
         g_err = check_grouping(sid, q, f"{v} width {width} {name}")
         group = dict(
             err=g_err,
@@ -1330,9 +1382,14 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": library_ms, "sector_bound_ms": sector_ms,
                 **({"ungrouped_ms": t[kname]["ungrouped_ms"]}
-                   if kname == dense else {})})
+                   if kname == dense else
+                   {"plan_order_ms": t[kname]["plan_order_ms"],
+                    "tile_lanes": t[kname]["tile_lanes"]})})
     report["clustered_over_dense_ms"] = {
         name: report[name][clus]["ms"] / report[name][dense]["ms"]
+        for name in qs}
+    report["clustered_over_plan_order_ms"] = {
+        name: report[name][clus]["ms"] / report[name][clus]["plan_order_ms"]
         for name in qs}
     for name in qs:                      # one line a traffic, then the phase
         emit(report.pop(name))
@@ -1429,9 +1486,12 @@ def small_mesh_check(meshes: dict) -> None:
             wrapper, plain, *_ = KERNELS[name]
             local = mx[DEVICE].local
             args = mesh_plan(mx[DEVICE], on(DEVICE, q_np)[0])
-            err = max_abs_err(wrapper(*shard_tables(local), *args),
-                              plain(*shard_tables(local), *args))
+            got = wrapper(*shard_tables(local), *args)
+            err = max_abs_err(got, plain(*shard_tables(local), *args))
             check(err == 0, f"{label}: {name} equals its plain version")
+            check(all(torch.equal(a, b) for a, b in zip(clustered_walk(
+                shard_tables(local), args[:4], args[4]), got)),
+                f"{label}: {name} equals its plan-order launch")
             report[f"{name}_B{width}_err"] = err
 
     # rebalancing: the in-place passes on an empty mesh index (8 shards of
@@ -1621,9 +1681,15 @@ def mesh_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
     tables = shard_tables(mx.local)
     for name, q in qs.items():
         args = mesh_plan(mx, q)
-        err = max_abs_err(wrapper(*tables, *args), plain(*tables, *args))
+        got = wrapper(*tables, *args)
+        err = max_abs_err(got, plain(*tables, *args))
         check(err == 0, f"{clus} equals its plain version on the mesh's "
                         f"lanes ({name})")
+        check(all(torch.equal(a, b) for a, b in
+                  zip(clustered_walk(tables, args[:4], args[4]), got)),
+              f"{clus} equals its plan-order launch on the mesh's lanes "
+              f"({name})")
+        del got
         sid = shd.route(mx.local.boundaries, q)
         fp = path_footprint(tables, q, sid)
         lap("kernel_check_and_replay")
@@ -1637,12 +1703,17 @@ def mesh_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
             exchange_ms=time_ms(lambda: mesh_exchange(mx, q, mesh),
                                 KERNEL_REPS),
             ms=time_ms(lambda: wrapper(*tables, *args), KERNEL_REPS),
+            plan_order_ms=time_ms(
+                lambda: clustered_walk(tables, args[:4], args[4]),
+                KERNEL_REPS),
             plain_ms=time_ms(lambda: plain(*tables, *args), PLAIN_REPS),
             library_ms=time_ms(lambda: torch.searchsorted(sorted_keys, q),
                                KERNEL_REPS))
         prof = device_breakdown(
             lambda: ml.search_kernel_mesh(mx, q, mesh=mesh))
         prof["idle_share"] = 1 - prof["device_ms"] / t["e2e_ms"]
+        t["kernel_device_breakdown"] = device_breakdown(
+            lambda: wrapper(*tables, *args), calls=5)
         lap("timing")
         B = q.numel()
         nblk, K = args[0].shape
@@ -1685,7 +1756,8 @@ def mesh_row(reports: list) -> dict:
             "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
             "sector_bound_ms": a["sector_bound_ms"],
             "library_ms": a["library_ms"], "e2e_ms": a["e2e_ms"],
-            "exchange_ms": a["exchange_ms"]}
+            "exchange_ms": a["exchange_ms"],
+            "plan_order_ms": a["plan_order_ms"]}
 
 
 def fat_tables(st: sl.SkipListState):
@@ -2125,6 +2197,10 @@ def main() -> None:
               kind: by_name[f"foresight_traverse_{kind}"]["ms"]
               / by_name[f"base_traverse_{kind}"]["ms"]
               for kind in ("sharded", "clustered")},
+          # K5 over K6 tile-sorted (above) and in the plan's order (before)
+          "clustered_plan_order_foresight_over_base_ms":
+              by_name["foresight_traverse_clustered"]["plan_order_ms"]
+              / by_name["base_traverse_clustered"]["plan_order_ms"],
           "sharded_over_monolithic_ms": {
               v: by_name[f"{v}_traverse_sharded"]["ms"]
               / by_name[f"{v}_traverse"]["ms"]
@@ -2157,6 +2233,7 @@ def main() -> None:
                                        g["max_abs_err"])
     key_row["launches"] += sum(f["group_by_key_launches"]
                                for f in fat.values())
+    fat_by_name = {r["name"]: r for r in fat_rows}
     k9 = fat[(128, True)]["k9"]
     k9["launches"] = sum(r["launches"] for r in fat_rows)
     check(k9["launches"] > 0, "fat_resolve (K9) launched on the fat paths")
@@ -2169,6 +2246,10 @@ def main() -> None:
           / by_name["foresight_traverse"]["ms"],
           "k9_alone_over_k1_fat128_ms": fat[(128, True)]["k9_share_of_k1_fat"],
           "k9_alone_over_k1_fat8_ms": fat[(8, True)]["k9_share_of_k1_fat"],
+          "clustered_foresight_over_base_ms": {
+              key: fat_by_name["foresight_traverse_clustered/fat128"][key]
+              / fat_by_name["base_traverse_clustered/fat128"][key]
+              for key in ("ms", "plan_order_ms")},
           "fat_over_scalar_ms": {
               r["name"]: r["ms"] / by_name[r["name"].split("/")[0]]["ms"]
               for r in fat_rows}})

@@ -5,7 +5,9 @@
 // validated_traverse.cu a lane order in which a warp's lanes read nearby
 // records, without a library sort or a host sync.  Both entry points are
 // stable counting sorts built from the same three passes (the one-digit pass
-// of a radix sort):
+// of a radix sort).  The order key, the block min/max and scan and the
+// span's shift live in tile_sort.cuh, which traverse.cu's tile-sorted K5/K6
+// share:
 //
 //   group_by_shard_launch (K3/K4): the lanes by shard id over S+1 buckets,
 //       bucket S taking every lane whose id is outside [0, S); the order the
@@ -69,7 +71,13 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_sort.cuh"
+
 namespace {
+
+using tile_sort::block_exclusive_scan;
+using tile_sort::block_min_max;
+using tile_sort::order_key;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -89,11 +97,6 @@ __device__ __forceinline__ int bucket_of(int s, int shards) {
   return (s >= 0 && s < shards) ? s : shards;
 }
 
-// int32 onto uint32 with the order kept.
-__device__ __forceinline__ unsigned order_key(int q) {
-  return (unsigned)q ^ 0x80000000u;
-}
-
 // Key mode's digit of q: bits [digit_shift, digit_shift + log2(radix)) of
 // the bucket (u(q) - lo) >> shift; span = {lo, shift}.
 __device__ __forceinline__ int key_digit(int q, const unsigned* span,
@@ -108,56 +111,17 @@ __device__ __forceinline__ int key_digit(int q, const unsigned* span,
 __device__ void block_key_span(const unsigned* __restrict__ partials, int n,
                                unsigned* span) {
   __shared__ unsigned lo_w[kWarps], hi_w[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   unsigned lo = 0xffffffffu, hi = 0u;
   for (int g = threadIdx.x; g < n; g += kThreads) {
     lo = min(lo, __ldg(partials + 2 * g));
     hi = max(hi, __ldg(partials + 2 * g + 1));
   }
-  lo = __reduce_min_sync(kFull, lo);
-  hi = __reduce_max_sync(kFull, hi);
-  if (lane == 0) {
-    lo_w[warp] = lo;
-    hi_w[warp] = hi;
-  }
-  __syncthreads();
+  block_min_max<kWarps>(lo, hi, lo_w, hi_w);
   if (threadIdx.x == 0) {
-    for (int w = 1; w < kWarps; ++w) {
-      lo = min(lo, lo_w[w]);
-      hi = max(hi, hi_w[w]);
-    }
-    const int bits = 32 - __clz((int)(hi - lo));   // bit length of the span
     span[0] = lo;
-    span[1] = (unsigned)max(0, bits - kKeyBucketBits);
+    span[1] = tile_sort::span_shift(lo, hi, kKeyBucketBits);
   }
   __syncthreads();
-}
-
-// Exclusive prefix of v over a block of kN warps; total is the block's sum.
-template <int kN>
-__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
-                                                    int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kN ? warp_sums[lane] : 0;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, w, d);
-      if (lane >= d) w += y;
-    }
-    if (lane < kN) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  const int prefix = (warp > 0 ? warp_sums[warp - 1] : 0) + x - v;
-  total = warp_sums[kN - 1];
-  __syncthreads();                          // warp_sums is reused next call
-  return prefix;
 }
 
 // (m) Key mode: block g writes the least and greatest u(q) of its share of
@@ -166,7 +130,6 @@ __global__ void __launch_bounds__(kThreads)
 key_span_kernel(const int* __restrict__ queries,
                 unsigned* __restrict__ partials, long long batch) {
   __shared__ unsigned lo_w[kWarps], hi_w[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long stride = (long long)gridDim.x * kThreads * kSpanItems;
   unsigned lo = 0xffffffffu, hi = 0u;
   for (long long base = (long long)blockIdx.x * kThreads * kSpanItems +
@@ -185,18 +148,8 @@ key_span_kernel(const int* __restrict__ queries,
         hi = max(hi, order_key(v[k]));
       }
   }
-  lo = __reduce_min_sync(kFull, lo);
-  hi = __reduce_max_sync(kFull, hi);
-  if (lane == 0) {
-    lo_w[warp] = lo;
-    hi_w[warp] = hi;
-  }
-  __syncthreads();
+  block_min_max<kWarps>(lo, hi, lo_w, hi_w);
   if (threadIdx.x == 0) {
-    for (int w = 1; w < kWarps; ++w) {
-      lo = min(lo, lo_w[w]);
-      hi = max(hi, hi_w[w]);
-    }
     partials[2 * blockIdx.x] = lo;
     partials[2 * blockIdx.x + 1] = hi;
   }

@@ -11,9 +11,11 @@
 //   base_sharded_launch        -> base_traverse_sharded (_base_sharded_kernel),
 //                                 K4, the same
 //   foresight_clustered_launch -> foresight_traverse_clustered
-//                                 (_foresight_clustered_kernel), K5
+//                                 (_foresight_clustered_kernel), K5, on
+//                                 tiles of plan lanes sorted by key
+//                                 (clustered_tile_kernel)
 //   base_clustered_launch      -> base_traverse_clustered
-//                                 (_base_clustered_kernel), K6
+//                                 (_base_clustered_kernel), K6, the same
 //   fat_resolve (device function, in all six when fat_keys is given; alone
 //   through fat_resolve_launch) -> _fat_resolve, the fat-node postlude, K9
 // All run the lock-step loop of _traverse_loop: start at the head on level
@@ -29,11 +31,11 @@
 // number of its own steps.  The TPU grids exist to stream index tiles
 // through VMEM: (B/128) x S shard tiles for K3/K4, the (B/128) x K tiles a
 // clustered block names for K5/K6.  Here the index stays in device memory
-// and a thread reads its own shard's records directly; nothing is staged in
-// shared memory.  K5/K6 keep the plan only to decide which lanes are
-// served: lane i of block i/128 is served iff sid[i] is among block_sids[j,
-// k < ndist[j]]; an unserved lane (or a shard id outside [0, S)) writes
-// (0, 0), the reference's _init.
+// and a thread reads its own shard's records directly; no index record is
+// staged in shared memory.  K5/K6 keep the plan only to decide which lanes
+// are served: lane i of block j = i/128 is served iff sid[i] is among
+// block_sids[j, k < ndist[j]]; an unserved lane (or a shard id outside
+// [0, S)) writes (0, 0), the reference's _init.
 //
 // The dense K3/K4 walk grouped lanes.  Lanes are routed by key range, so in
 // batch order a warp's 32 lanes hit up to 32 shards and every warp walks
@@ -46,8 +48,41 @@
 // the same records of that shard's upper levels, which L1 and L2 serve
 // after the first miss.  What still bounds the grouped walk is the rest of
 // each lane's chain of dependent misses below the shared levels.  out_idx
-// == nullptr keeps lane i's result at i (K5/K6, K9 alone, and the
-// ungrouped K1/K2/K3/K4 launch that is timed beside the grouped one).
+// == nullptr keeps lane i's result at i (K9 alone, the ungrouped
+// K1/K2/K3/K4 launch and the plan-order K5/K6 launch, each timed beside
+// the wrappers' launch).
+//
+// K5 and K6 walk tiles of the plan's lanes sorted by key, in one launch
+// (clustered_tile_kernel).  The plan (kernels/ops.py cluster_queries) is a
+// stable sort by shard, so each shard's lanes are contiguous but in batch
+// order: on uniform traffic over 64 shards a warp's 32 consecutive plan
+// lanes hit one shard at 32 random keys and share only its top levels.  A
+// block takes a tile of kTile = 1024 consecutive plan lanes, one a thread,
+// which lie in one or two shards, and sorts it in shared memory by a
+// counting sort over 2^10 key buckets of the tile's own span; warp w then
+// walks the sorted lanes 32w..32w+31, which lie within some ten thousand of
+// one shard's keys.  The plan has done the coarse half of the sort, so
+// there is no global pass: no extra launch, no min/max pass over the batch
+// and no host work.  Which lanes walk is decided at each lane's plan index
+// (served_by_plan, block i/128), and each result is stored at its plan
+// index, so the results are the plan-order launch's bit for bit.  Every
+// thread walks one sorted lane or none, so the whole warp reaches K9.
+//
+// What bounds it is what bounds K1-K4: each lane's chain of dependent
+// misses, about 40 steps a lane on uniform traffic.  Sorting a tile saves
+// only the requests a warp's lanes make to the same records, the upper and
+// middle levels of a shard, which mostly hit in cache anyway; 1024 lanes
+// of a shard's 16384 are still some 500 keys apart, so the lower levels'
+// records stay a miss each.  On the H100 the sort does not pay on scalar
+// traffic: against the plan-order walk in the same runs it took from 2%
+// less to 13% more time on uniform keys, and 15-30% more on Zipf keys,
+// where the sort's fixed cost shows and 93.6% of the lanes fall in one
+// shard's lowest buckets.  With K9 at 128 keys a node on uniform keys K6
+// saved 7-13% (sorted lanes share owner rows) and K5 took from 7% less
+// to 5% more; on Zipf keys both took 17-34% more.  Tiles of 2048 and 4096
+// lanes, and grouping the whole batch by key with group_by_key first, did
+// not beat 1024 (PERF.md).  Two blocks an SM keep it full: at most 32
+// registers a thread, 16 KB of shared memory a block.
 //
 // K1 and K2 walk lanes grouped by key range.  A monolithic list has no
 // shard to group by, so the wrapper first runs group_by_key
@@ -74,7 +109,7 @@
 // miss latency; the card's byte rate is not the limit.  Grouping (K1-K4)
 // cuts the misses a warp makes, not the chain a lane waits on; more walks
 // in flight a thread and the top levels in shared memory are the levers
-// left (K1-K4 grouped; K5/K6 walk the clustered plan's shard-sorted lanes).
+// left (K1-K4 grouped, K5/K6 tile-sorted).
 //
 // Record and byte offsets are computed in 64 bits: at 27 levels x 2^26 slots
 // the record index reaches 1.8e9 and the byte offset 14.5e9, and a stack of
@@ -108,12 +143,29 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "tile_sort.cuh"
+
 namespace {
+
+using tile_sort::block_exclusive_scan;
+using tile_sort::block_min_max;
+using tile_sort::order_key;
+using tile_sort::warp_claim;
 
 constexpr int kBlock = 256;
 constexpr int kQblk = 128;   // lanes per block of a clustered plan (QBLK)
 constexpr int kKeyMax = 0x7fffffff;
 constexpr unsigned kFullMask = 0xffffffffu;
+// The tile-sorted K5/K6: a tile of 1024 plan lanes a block, one a thread
+// (tiles of 2048 and 4096 at 1024 threads measured slower on the H100,
+// PERF.md); two blocks an SM, so at most 32 registers a thread (2048
+// threads, the SM's whole complement); 2^10 key buckets a tile, one a
+// thread in the scan.
+constexpr int kTile = 1024;
+constexpr int kTileWarps = kTile / 32;
+constexpr int kTileMinBlocks = 2;
+constexpr int kTileBucketBits = 10;
+constexpr int kTileBuckets = 1 << kTileBucketBits;
 
 // K1's walk over one table fused [levels, cap, 2]: the level-0 record of the
 // final predecessor, which is left in x.
@@ -340,6 +392,98 @@ base_sharded_kernel(const int* __restrict__ nxt, const int* __restrict__ keys,
   if (live) store(out_idx, i, node, key, r);
 }
 
+// K5 and K6: the clustered walk on tiles of the plan's lanes, each tile
+// sorted by key in shared memory.  Block j takes the kTile consecutive plan
+// lanes from j * kTile, one a thread, and:
+//   (1) reads its lane's shard id and query (coalesced) and decides at the
+//       lane's plan index i whether it walks: a lane past the batch, with a
+//       shard id outside [0, S), or not among block i / 128's slots
+//       (served_by_plan) walks nothing;
+//   (2) finds the least and greatest order key of the lanes that walk;
+//   (3) counts the lanes into kTileBuckets key buckets (u - lo) >> shift
+//       over that span, a lane that walks nothing into the last, and keeps
+//       its rank in its bucket (warp-aggregated shared atomics);
+//   (4) scans the counts, one bucket a thread, into each bucket's first
+//       sorted position;
+//   (5) writes (slot, shard or -1, query) at its sorted position;
+//   (6) walks: thread t takes sorted position t, so warp w walks the 32
+//       consecutive sorted lanes 32w.., which lie in one narrow key range
+//       of one shard; each lane keeps its own early exit and max_steps, the
+//       whole warp reaches K9, and each result is stored at its plan index.
+// The order changes no lane's walk, only which lanes share a warp, so the
+// results equal the plan-order launch bit for bit, step cap included.
+template <bool kForesight>
+__global__ void __launch_bounds__(kTile, kTileMinBlocks)
+clustered_tile_kernel(const int2* __restrict__ fused,
+                      const int* __restrict__ nxt,
+                      const int* __restrict__ keys,
+                      const int* __restrict__ fat,
+                      const int* __restrict__ bsids,
+                      const int* __restrict__ ndist,
+                      const int* __restrict__ sids,
+                      const int* __restrict__ queries,
+                      int* __restrict__ node, int* __restrict__ key,
+                      long long batch, int shards, int k_slots, int levels,
+                      long long cap, int width, long long max_steps) {
+  __shared__ int next[kTileBuckets];        // counts, then first positions
+  __shared__ int o_slot[kTile], o_sid[kTile], o_q[kTile];    // sorted lanes
+  __shared__ unsigned lo_w[kTileWarps], hi_w[kTileWarps], span[2];
+  __shared__ int warp_sums[kTileWarps];
+  const int t = threadIdx.x;
+  const long long base = (long long)blockIdx.x * kTile;
+  next[t] = 0;
+  const long long i = base + t;                                  // (1)
+  const bool live = i < batch;
+  const int s = live ? __ldg(sids + i) : -1;
+  const int q = live ? __ldg(queries + i) : 0;
+  const bool walks = live && s >= 0 && s < shards &&
+                     served_by_plan(bsids, ndist, i, s, k_slots);
+  unsigned lo = walks ? order_key(q) : 0xffffffffu;               // (2)
+  unsigned hi = walks ? order_key(q) : 0u;
+  block_min_max<kTileWarps>(lo, hi, lo_w, hi_w);
+  if (t == 0) {
+    span[0] = lo;
+    span[1] = lo <= hi ? tile_sort::span_shift(lo, hi, kTileBucketBits) : 0;
+  }
+  __syncthreads();
+  const int b = walks ? (int)((order_key(q) - span[0]) >> span[1])  // (3)
+                      : kTileBuckets - 1;
+  const int rank = warp_claim(next, b);
+  __syncthreads();
+  int total;                                                     // (4)
+  const int first = block_exclusive_scan<kTileWarps>(next[t], warp_sums,
+                                                     total);
+  next[t] = first;                 // bucket t is this thread's alone here
+  __syncthreads();
+  const int pos = next[b] + rank;                                // (5)
+  o_slot[pos] = t;
+  o_sid[pos] = walks ? s : -1;
+  o_q[pos] = q;
+  __syncthreads();
+  const int ws = o_sid[t], wq = o_q[t];                          // (6)
+  const bool w = ws >= 0;
+  int x = 0;
+  int2 res = make_int2(0, 0);
+  if (w) {
+    if constexpr (kForesight)
+      res = foresight_walk(fused + (size_t)ws * (size_t)levels * (size_t)cap,
+                           wq, levels, cap, max_steps, x);
+    else
+      res = base_walk(nxt + (size_t)ws * (size_t)levels * (size_t)cap,
+                      keys + (size_t)ws * (size_t)cap, wq, levels, cap,
+                      max_steps, x);
+  }
+  if (fat != nullptr)
+    res = fat_resolve(fat + (size_t)(w ? ws : 0) * (size_t)cap *
+                                (size_t)width,
+                      width, wq, x, res, w);
+  const long long o = base + o_slot[t];
+  if (o < batch) {
+    node[o] = res.x;
+    key[o] = res.y;
+  }
+}
+
 // K9 alone, from given final predecessors xs over the level-0 records of a
 // foresight table (fused's first cap records).
 __global__ void __launch_bounds__(kBlock)
@@ -358,6 +502,21 @@ fat_resolve_kernel(const int2* __restrict__ fused, const int* __restrict__ fat,
 
 unsigned grid_for(long long batch) {
   return (unsigned)((batch + kBlock - 1) / kBlock);
+}
+
+// The tile-sorted K5 / K6 launch: a block of kTile threads a tile.
+template <bool kForesight>
+int clustered_tile_launch(const int2* fused, const int* nxt, const int* keys,
+                          const int* fat, const int* bsids, const int* ndist,
+                          const int* sids, const int* queries, int* node,
+                          int* key, long long batch, int shards, int k_slots,
+                          int levels, long long cap, int width,
+                          long long max_steps, cudaStream_t st) {
+  clustered_tile_kernel<kForesight>
+      <<<(unsigned)((batch + kTile - 1) / kTile), kTile, 0, st>>>(
+          fused, nxt, keys, fat, bsids, ndist, sids, queries, node, key,
+          batch, shards, k_slots, levels, cap, width, max_steps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -422,13 +581,14 @@ int base_sharded_launch(const void* nxt, const void* keys, const void* fat,
   return (int)cudaGetLastError();
 }
 
-int foresight_clustered_launch(const void* fused, const void* fat,
-                               const void* bsids, const void* ndist,
-                               const void* sids, const void* queries,
-                               void* node, void* key, long long batch,
-                               int shards, int k_slots, int levels,
-                               long long cap, int width, long long max_steps,
-                               void* stream) {
+// K5 / K6 in the plan's lane order, one thread a lane (the walk before the
+// tile sort): kept only as the yardstick that chip_smoke.py times beside
+// the tile-sorted launch below.  No wrapper calls it.
+int foresight_clustered_plan_order_launch(
+    const void* fused, const void* fat, const void* bsids, const void* ndist,
+    const void* sids, const void* queries, void* node, void* key,
+    long long batch, int shards, int k_slots, int levels, long long cap,
+    int width, long long max_steps, void* stream) {
   foresight_sharded_kernel<<<grid_for(batch), kBlock, 0,
                              (cudaStream_t)stream>>>(
       (const int2*)fused, (const int*)fat, (const int*)bsids,
@@ -438,18 +598,45 @@ int foresight_clustered_launch(const void* fused, const void* fat,
   return (int)cudaGetLastError();
 }
 
-int base_clustered_launch(const void* nxt, const void* keys, const void* fat,
-                          const void* bsids, const void* ndist,
-                          const void* sids, const void* queries, void* node,
-                          void* key, long long batch, int shards, int k_slots,
-                          int levels, long long cap, int width,
-                          long long max_steps, void* stream) {
+int base_clustered_plan_order_launch(
+    const void* nxt, const void* keys, const void* fat, const void* bsids,
+    const void* ndist, const void* sids, const void* queries, void* node,
+    void* key, long long batch, int shards, int k_slots, int levels,
+    long long cap, int width, long long max_steps, void* stream) {
   base_sharded_kernel<<<grid_for(batch), kBlock, 0, (cudaStream_t)stream>>>(
       (const int*)nxt, (const int*)keys, (const int*)fat, (const int*)bsids,
       (const int*)ndist, (const int*)sids, nullptr, (const int*)queries,
       (int*)node, (int*)key, batch, shards, k_slots, levels, cap, width,
       max_steps);
   return (int)cudaGetLastError();
+}
+
+// K5 / K6, the wrappers' launch: the tile-sorted walk.
+int foresight_clustered_launch(const void* fused, const void* fat,
+                               const void* bsids, const void* ndist,
+                               const void* sids, const void* queries,
+                               void* node, void* key, long long batch,
+                               int shards, int k_slots, int levels,
+                               long long cap, int width,
+                               long long max_steps, void* stream) {
+  return clustered_tile_launch<true>(
+      (const int2*)fused, nullptr, nullptr, (const int*)fat,
+      (const int*)bsids, (const int*)ndist, (const int*)sids,
+      (const int*)queries, (int*)node, (int*)key, batch, shards, k_slots,
+      levels, cap, width, max_steps, (cudaStream_t)stream);
+}
+
+int base_clustered_launch(const void* nxt, const void* keys, const void* fat,
+                          const void* bsids, const void* ndist,
+                          const void* sids, const void* queries, void* node,
+                          void* key, long long batch, int shards, int k_slots,
+                          int levels, long long cap, int width,
+                          long long max_steps, void* stream) {
+  return clustered_tile_launch<false>(
+      nullptr, (const int*)nxt, (const int*)keys, (const int*)fat,
+      (const int*)bsids, (const int*)ndist, (const int*)sids,
+      (const int*)queries, (int*)node, (int*)key, batch, shards, k_slots,
+      levels, cap, width, max_steps, (cudaStream_t)stream);
 }
 
 int fat_resolve_launch(const void* fused, const void* fat, const void* xs,

@@ -1,12 +1,14 @@
 """Build the CUDA sources of ``csrc/`` with nvcc at first use; load with ctypes.
 
 Every ``csrc/*.cu`` is compiled to an object file by its own nvcc process,
-all started together, and the objects are linked into one shared library.
-The library has a plain C interface (no PyTorch headers), so nvcc takes
+all started together, and the objects are linked into one shared library
+(``csrc/*.cuh`` holds device code that several sources include).  The
+library has a plain C interface (no PyTorch headers), so nvcc takes
 seconds.  It lands in ``repro_torch/build/`` under a name carrying a hash
-of all the sources and the flags, so an edit to any source rebuilds it; a
-finished file is renamed into place, so concurrent first uses do not see a
-half-written one.  A failed build raises: there is no fallback.
+of all the sources, headers included, and the flags, so an edit to any
+of them rebuilds it; a finished file is renamed into place, so concurrent
+first uses do not see a half-written one.  A failed build raises: there is
+no fallback.
 """
 from __future__ import annotations
 
@@ -45,12 +47,17 @@ _SIGNATURES = {
     # width
     "base_sharded_launch": [_P] * 8 + [_LL, _I, _I, _LL, _I, _LL, _P],
     # fused, fat, block_sids, ndist, shard_ids, queries | shards, K,
-    # levels, cap, width
+    # levels, cap, width (the tile-sorted walk)
     "foresight_clustered_launch": [_P] * 8 + [_LL, _I, _I, _I, _LL, _I, _LL,
                                               _P],
     # nxt, keys, fat, block_sids, ndist, shard_ids, queries | shards, K,
     # levels, cap, width
     "base_clustered_launch": [_P] * 9 + [_LL, _I, _I, _I, _LL, _I, _LL, _P],
+    # the same two in the plan's lane order
+    "foresight_clustered_plan_order_launch": [_P] * 8 + [_LL, _I, _I, _I,
+                                                         _LL, _I, _LL, _P],
+    "base_clustered_plan_order_launch": [_P] * 9 + [_LL, _I, _I, _I, _LL,
+                                                    _I, _LL, _P],
     # fused, fat, x, queries, node, key | batch, width (no max_steps)
     "fat_resolve_launch": [_P] * 6 + [_LL, _I, _P],
     # shard_ids, queries, counts, scanned, offsets, q_sorted, sid_sorted,
@@ -92,7 +99,7 @@ def compile_library() -> Path:
     """Compile the kernels unless this exact build exists; return its path."""
     srcs = sorted(SOURCE_DIR.glob("*.cu"))
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in sorted(SOURCE_DIR.glob("*.cu*")):      # the headers too
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     tag = digest.hexdigest()[:12]
     out = BUILD_DIR / f"libtraverse-{tag}.so"

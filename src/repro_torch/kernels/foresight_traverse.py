@@ -18,6 +18,9 @@ Port of the kernels of ``repro.kernels.foresight_traverse``:
   K6): K3 / K4 on a shard-sorted batch of 128-lane blocks (``QBLK``),
   serving lane ``i`` of block ``j`` only if its shard is one of the
   block's ``block_sids[j, :ndist[j]]`` (``kernels.ops.cluster_queries``).
+  On the card one launch sorts each tile of consecutive plan lanes
+  (``CLUSTERED_TILE``) by key in shared memory and walks it in that
+  order; no pass runs before it.
 * K9, the fat-node postlude (``_fat_resolve`` in the reference): given
   ``fat_keys`` (``[cap, B]``, or ``[S, cap, B]`` for K3-K6), every kernel
   above ends by finding the query's run and its position in it, and
@@ -34,17 +37,17 @@ else, so a run can show its lookups went through the kernel; a launch
 with ``fat_keys`` also counts in the wrapper's ``fat_launches`` and in
 ``fat_resolve.launches``, since K9 ran inside it.  K3 / K4's grouping pass
 counts in ``group_by_shard.launches``, K1's and K2's in
-``group_by_key.launches``.
+``group_by_key.launches``; K5 / K6 run neither.
 
 Semantics are those of the reference's ``_traverse_loop``: every query
 starts at the head on level ``L-1`` and advances or descends once per
 step until it is below level 0 or ``max_steps`` steps have run.  The
-kernels give each query its own thread and loop; the reference's 128-lane
-blocks and their padding have no counterpart in K1-K4, and the batch may
-have any length.  K5 / K6 keep ``QBLK`` only as the block that
-``block_sids`` and ``ndist`` describe; a lane whose shard is outside
-``[0, S)`` or, in K5 / K6, not among its block's slots is not served and
-gets ``(0, 0)``, the reference's initial output.
+kernels give each query its own loop; the reference's 128-lane blocks and
+their padding have no counterpart in K1-K4, and the batch may have any
+length.  K5 / K6 keep ``QBLK`` only as the block that ``block_sids`` and
+``ndist`` describe; a lane whose shard is outside ``[0, S)`` or, in K5 /
+K6, not among its block's slots is not served and gets ``(0, 0)``, the
+reference's initial output.
 """
 from __future__ import annotations
 
@@ -58,6 +61,9 @@ from repro_torch.kernels.shard_group import (check_group_cap, launch_grouping,
 
 QBLK = 128     # query lanes per block of the clustered launch plan
 _KEY_MAX = 2**31 - 1
+# Plan lanes a block of the tile-sorted K5 / K6 sorts and walks, one a
+# thread (kTile in csrc/traverse.cu, fixed there at compile time).
+CLUSTERED_TILE = 1024
 
 
 def traversal_bound(levels: int, capacity: int) -> int:
@@ -294,7 +300,7 @@ def _fat_table(name: str, fat_keys, lead: Tuple[int, ...]):
 def launch_walk(wrapper, symbol: str, inputs, sizes, max_steps: int,
                 fat_keys=None, grouped=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``symbol`` (a ``csrc`` launcher) on one thread per query.
+    """Launch ``symbol`` (a ``csrc`` launcher) on the batch.
 
     Its C arguments are the pointers of ``inputs`` (queries last; ``None``
     passes a null pointer), of the outputs node and key, then the batch,
@@ -518,7 +524,13 @@ def foresight_traverse_clustered(fused: torch.Tensor,
     ``queries`` / ``shard_ids`` are shard-sorted, ``nblk * QBLK`` lanes,
     with ``block_sids [nblk, K]`` and ``ndist [nblk]`` built for that
     order (``kernels.ops.cluster_queries``).  Returns (node, cand_key) in
-    the sorted order; ``fat_keys`` as in K3.
+    the sorted order; ``fat_keys`` as in K3.  On the card it is always one
+    launch of the tile-sorted walk: each block sorts a tile of consecutive
+    plan lanes (``CLUSTERED_TILE``) by key in shared memory, so a warp's
+    lanes lie in one narrow key range of one shard, walks them in that
+    order and stores each result at its plan index.  What bounds it is
+    each lane's chain of dependent misses below the levels its warp
+    shares.
     """
     S, L, cap, _ = fused.shape
     q, sid = queries.to(torch.int32), shard_ids.to(torch.int32)
@@ -544,7 +556,8 @@ def base_traverse_clustered(nxt: torch.Tensor, keys: torch.Tensor,
                             fat_keys=None, *, max_steps: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Clustered base search (K6) over ``nxt [S, L, cap]`` and
-    ``keys [S, cap]``."""
+    ``keys [S, cap]``; on the card the tile-sorted walk of K5, two
+    dependent loads a step."""
     S, L, cap = nxt.shape
     q, sid = queries.to(torch.int32), shard_ids.to(torch.int32)
     bs, nd = block_sids.to(torch.int32), ndist.to(torch.int32)

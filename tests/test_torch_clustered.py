@@ -4,10 +4,12 @@ repro's, bit for bit, on the CPU (Pallas in interpret mode).
 Twins of ``tests/test_clustered_traversal.py``; its three jit cases and the
 traced half of the undersized-K case have no eager counterpart (ROADMAP
 item 7).  Also: plain K3-K6 against the Pallas kernels at the default step
-cap and at ``max_steps=9``, the five plan arrays (which depend on the zero
-padding to whole 128-lane blocks), the degeneration split and the TPU
-cost model arithmetic.  The CUDA kernels themselves are tested on a card by
-``tests/test_torch_sharded_gpu.py``.
+cap and at ``max_steps=9``, on half-hit lanes, hot duplicate keys and a
+plan block that straddles three shards (the inputs on which the card tests
+hold the tile-sorted K5 / K6 against these plain versions); the five plan
+arrays (which depend on the zero padding to whole 128-lane blocks), the
+degeneration split and the TPU cost model arithmetic.  The CUDA kernels
+themselves are tested on a card by ``tests/test_torch_sharded_gpu.py``.
 """
 import sys
 
@@ -187,15 +189,31 @@ def test_clustered_random_batches_seeded(foresight):
 # Plain K3-K6 against the Pallas kernels
 # ---------------------------------------------------------------------------
 
+def _lanes(kind, keys, boundaries, rng):
+    """384 lanes (three plan blocks): half hits; hot duplicate keys (four
+    keys, Zipf-weighted); or shards 0, 1, 2 and 3 with 100, 20, 30 and 234
+    lanes, so that the first plan block straddles three shards."""
+    if kind == "half_hit":
+        return np.concatenate([rng.choice(keys, 200),
+                               rng.integers(0, 1 << 22, 184)])
+    if kind == "hot_duplicates":
+        return keys[100 + (rng.zipf(1.2, 384) - 1) % 4]
+    b = np.asarray(boundaries).astype(np.int64)
+    return np.concatenate([rng.choice(keys[(keys >= b[s]) & (keys < b[s + 1])],
+                                      n) for s, n in enumerate((100, 20, 30,
+                                                                234))])
+
+
+@pytest.mark.parametrize("lanes",
+                         ["half_hit", "hot_duplicates", "three_shard_block"])
 @pytest.mark.parametrize("foresight", [True, False])
 @pytest.mark.parametrize("max_steps", [0, 9])
 def test_plain_sharded_and_clustered_kernels_match_pallas(foresight,
-                                                          max_steps):
+                                                          max_steps, lanes):
     ref, shl, keys, rng = _index(n_shards=8, levels=12, foresight=foresight)
     ref = shd.split_shard(ref, 0)                  # S = 9
     shl = _port(ref)
-    q = np.concatenate([rng.choice(keys, 200),
-                        rng.integers(0, 1 << 22, 184)]).astype(np.int32)
+    q = _lanes(lanes, keys, ref.boundaries, rng).astype(np.int32)
     sid = np.array(shd.route(ref.boundaries, jnp.asarray(q)))
     sid[::37] = -1                                 # unrouted lanes: (0, 0)
     plan = kops.cluster_queries(ref.boundaries, jnp.asarray(q))
@@ -215,6 +233,8 @@ def test_plain_sharded_and_clustered_kernels_match_pallas(foresight,
     _eq(got, dense_j(*tabs_j, jnp.asarray(sid), jnp.asarray(q),
                      max_steps=max_steps))
     assert (got[0].numpy()[::37] == 0).all()
+    if lanes == "three_shard_block":
+        assert int(plan.ndist[0]) == 3
     # a plan whose blocks leave lanes unserved: slots cut to 1, ndist kept
     for bs, nd in ((plan.block_sids, plan.ndist),
                    (plan.block_sids[:, :1], plan.ndist)):

@@ -7,7 +7,8 @@ unserved lanes, on owners that are the head, the tail or the last row, and
 on a table shifted off 16-byte alignment; the grouped dense walks (K3/K4
 after ``group_by_shard``) with K9 on lane sets grouped every way; K1 and K2
 with K9 on lanes grouped by key range (``group_by_key``), also against
-their launch on the lanes in batch order.
+their launch on the lanes in batch order; the tile-sorted K5 / K6 with K9,
+also against their plan-order launch.
 
 Needs a CUDA card, nvcc and no JAX; every test here is marked ``gpu`` and
 skips without a card.  Run on a card machine with
@@ -355,3 +356,54 @@ def test_grouped_k2_with_k9_equals_plain_and_batch_order_on_card(cuda, nw,
     _same(got, _batch_order(st, q))
     _same(got, tft.base_traverse_plain(st.nxt.cpu(), st.keys.cpu(), q.cpu(),
                                        st.fat_keys.cpu()))
+
+
+def _clustered_plan_order(shl, args, fat, max_steps):
+    """K5 / K6 + K9 in the plan's lane order (the yardstick launch the tile
+    sort replaced), through the launcher directly; it counts nothing."""
+    tables = tops._tables(shl)
+    S, L, cap = tables[0].shape[:3]
+    bs, _, _, q = args
+    node, key = torch.empty_like(q), torch.empty_like(q)
+    _build.launch("foresight_clustered_plan_order_launch" if shl.foresight
+                  else "base_clustered_plan_order_launch",
+                  *(t.data_ptr() for t in (*tables, fat, *args)),
+                  node.data_ptr(), key.data_ptr(), q.numel(), S,
+                  bs.shape[1], L, cap, fat.shape[-1],
+                  max_steps or tft.traversal_bound(L, cap),
+                  torch.cuda.current_stream().cuda_stream)
+    return node, key
+
+
+@pytest.mark.parametrize("foresight", [True, False])
+@pytest.mark.parametrize("nw", WIDTHS)
+def test_tile_sorted_k5_k6_with_k9_equal_plain_on_card(cuda, nw, foresight):
+    """K9 inside the tile-sorted walk: half-hit and Zipf lanes (sorted
+    lanes share owner rows), every block's slots cut to one and shard ids
+    -1 and S (warps whose lanes partly walk nothing), at the default step
+    cap and at 9 steps; equal to the plain version and the plan-order
+    launch."""
+    shl, keys, rng = _sharded(cuda, nw, foresight, 9)
+    tables, fat = tops._tables(shl), shl.shards.fat_keys
+    clus, clus_plain = ((tft.foresight_traverse_clustered,
+                         tft.foresight_traverse_clustered_plain) if foresight
+                        else (tft.base_traverse_clustered,
+                              tft.base_traverse_clustered_plain))
+    for traffic in ("half_hit", "zipf"):
+        q = (keys[(rng.zipf(1.2, 2432) - 1) % len(keys)] if traffic == "zipf"
+             else _half_hit(keys, rng, 2430))
+        plan = tops.cluster_queries(shl.boundaries,
+                                    tops._pad(torch.from_numpy(q).to(cuda))[0])
+        args = (plan.block_sids, plan.ndist, plan.sid_sorted, plan.q_sorted)
+        sid = plan.sid_sorted.clone()
+        sid[::5] = -1
+        sid[2::5] = shl.n_shards
+        for a in (args, (plan.block_sids[:, :1].contiguous(), *args[1:]),
+                  (*args[:2], sid, args[3])):
+            for max_steps in (0, 9):
+                before = clus.fat_launches, tft.fat_resolve.launches
+                got = clus(*tables, *a, fat, max_steps=max_steps)
+                assert (clus.fat_launches, tft.fat_resolve.launches) == (
+                    before[0] + 1, before[1] + 1)
+                _same(got, clus_plain(*tables, *a, fat, max_steps=max_steps))
+                _same(got, _clustered_plan_order(shl, a, fat, max_steps))

@@ -1,6 +1,10 @@
 """The port's sharded CUDA kernels (K3-K6) and K7 on the card, held against
-their plain versions and the CPU; and the grouping pass of K3/K4
-(``group_by_shard``) against its plain version and a stable argsort.
+their plain versions and the CPU; the grouping pass of K3/K4
+(``group_by_shard``) against its plain version and a stable argsort; and
+the tile-sorted K5/K6 against their plain versions and the plan-order
+launch, at batches around the tile size, on skewed, unserved and
+out-of-range lanes and on K7's keep blocks, with no grouping pass
+launched.
 
 Needs a CUDA card, nvcc and no JAX; every test here is marked ``gpu`` and
 skips without a card.  Run on a card machine with
@@ -12,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.core import sharded as tsh
+from repro_torch.kernels import _build
 from repro_torch.kernels import foresight_traverse as tft
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import shard_group as tsg
@@ -264,3 +269,150 @@ def test_grouped_dense_walk_equals_plain_and_cpu_on_card(cuda, foresight,
            dense_plain(*(t.cpu() for t in _tables(shl)), sid.cpu(), q.cpu()))
     if traffic == "out_of_range":
         assert int(got[0][::5].abs().sum() + got[1][2::5].abs().sum()) == 0
+
+
+# ---------------------------------------------------------------------------
+# The tile-sorted K5 / K6: one launch that sorts each tile of plan lanes by
+# key in shared memory, then walks it
+# ---------------------------------------------------------------------------
+
+T = tft.CLUSTERED_TILE       # plan lanes a block sorts and walks
+
+
+def _plan_args(shl, q):
+    plan = tops.cluster_queries(shl.boundaries, tops._pad(q)[0])
+    return plan, (plan.block_sids, plan.ndist, plan.sid_sorted,
+                  plan.q_sorted)
+
+
+def _plan_order(shl, args, fat=None, max_steps=0):
+    """K5 / K6 in the plan's lane order, one thread a lane (the launch the
+    tile sort replaced, kept as a yardstick), through the launcher
+    directly; it counts nothing."""
+    tables = _tables(shl)
+    S, L, cap = tables[0].shape[:3]
+    bs, nd, sid, q = args
+    node, key = torch.empty_like(q), torch.empty_like(q)
+    _build.launch("foresight_clustered_plan_order_launch" if shl.foresight
+                  else "base_clustered_plan_order_launch",
+                  *(t.data_ptr() for t in tables),
+                  None if fat is None else fat.data_ptr(),
+                  *(t.data_ptr() for t in args), node.data_ptr(),
+                  key.data_ptr(), q.numel(), S, bs.shape[1], L, cap,
+                  1 if fat is None else fat.shape[-1],
+                  max_steps or tft.traversal_bound(L, cap),
+                  torch.cuda.current_stream().cuda_stream)
+    return node, key
+
+
+def _check_tile_sorted(shl, args, fat=None):
+    """The wrapper (the tile-sorted launch, counted once) equals the plain
+    version, on the card and on the CPU, and the plan-order launch, at the
+    default step cap and at 9 steps."""
+    _, (clus, clus_plain) = _kernels(shl)
+    fk = () if fat is None else (fat,)
+    for max_steps in (0, 9):
+        before = clus.launches
+        got = clus(*_tables(shl), *args, *fk, max_steps=max_steps)
+        assert clus.launches == before + 1
+        _check(got, clus_plain(*_tables(shl), *args, *fk,
+                               max_steps=max_steps),
+               clus_plain(*(t.cpu() for t in _tables(shl)),
+                          *(a.cpu() for a in args),
+                          *(f.cpu() for f in fk), max_steps=max_steps))
+        _check(got, _plan_order(shl, args, fat, max_steps))
+
+
+@pytest.mark.parametrize("batch", [128, 3 * 128, T - 128, T + 128,
+                                   5 * T + 384])
+@pytest.mark.parametrize("foresight", [True, False])
+def test_tile_sorted_k5_k6_equal_plain_and_plan_order_on_card(
+        cuda, foresight, batch):
+    shl, keys = _index(cuda, 9, foresight)
+    rng = np.random.default_rng(batch)
+    q = np.concatenate([rng.choice(keys, batch // 2),
+                        rng.integers(0, 1 << 22, batch - batch // 2)])
+    _, args = _plan_args(shl, torch.from_numpy(q.astype(np.int32)).to(cuda))
+    assert args[3].numel() == batch
+    _check_tile_sorted(shl, args)
+
+
+def _tile_lanes(shl, keys, traffic, rng):
+    """A batch of 3 tiles + 384 lanes and its plan arguments, for
+    ``traffic``: every lane on one key, Zipf(1.2) by key rank, half hits
+    with every block's slots cut to one (ndist kept: the lanes of a
+    block's other shards are not served), or half hits with shard ids -1
+    and S written into the plan's lanes."""
+    batch = 3 * T + 384
+    if traffic == "one_key":
+        q = np.full(batch, keys[700])
+    elif traffic == "zipf":
+        q = keys[(rng.zipf(1.2, batch) - 1) % len(keys)]
+    else:
+        q = np.concatenate([rng.choice(keys, batch // 2),
+                            rng.integers(0, 1 << 22, batch - batch // 2)])
+    plan, args = _plan_args(shl, torch.from_numpy(q.astype(np.int32)).to(
+        shl.device))
+    bs, nd, sid, q = args
+    if traffic == "slots_cut":
+        bs = bs[:, :1].contiguous()
+    elif traffic == "out_of_range":
+        sid = sid.clone()
+        sid[::5] = -1
+        sid[2::5] = shl.n_shards
+    return plan, (bs, nd, sid, q)
+
+
+@pytest.mark.parametrize("traffic",
+                         ["one_key", "zipf", "slots_cut", "out_of_range"])
+@pytest.mark.parametrize("foresight", [True, False])
+def test_tile_sorted_k5_k6_on_skewed_and_unserved_lanes_on_card(
+        cuda, foresight, traffic):
+    shl, keys = _index(cuda, 9, foresight)
+    plan, args = _tile_lanes(shl, keys, traffic, np.random.default_rng(3))
+    if traffic in ("slots_cut", "out_of_range"):
+        # tiles that hold lanes of three shards or more, some not walking
+        tiles = plan.sid_sorted[:3 * T].reshape(3, T)
+        assert max(int(torch.unique(t).numel()) for t in tiles) >= 3
+    _check_tile_sorted(shl, args)
+    if traffic == "out_of_range":
+        _, (clus, _) = _kernels(shl)
+        node, key = clus(*_tables(shl), *args)
+        assert int(node[::5].abs().sum() + key[2::5].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("foresight", [True, False])
+def test_k7_keep_blocks_on_tiles_equal_cpu(cuda, foresight):
+    """The straddle stream takes K7's split: its keep blocks go through
+    the tile-sorted K5 / K6 with their slots cut to k_small."""
+    shl, _ = _index(cuda, 9, foresight)
+    cpu, _ = _index("cpu", 9, foresight)
+    q = torch.from_numpy(_straddle_stream(shl.boundaries, n_blocks=40)
+                         ).to(cuda)
+    plan = tops.cluster_queries(shl.boundaries, tops._pad(q)[0])
+    assert tops.plan_degeneration_split(plan.ndist, 9) is not None
+    _, (clus, _) = _kernels(shl)
+    before = clus.launches
+    got = tops.search_kernel_sharded(shl, q)
+    assert clus.launches == before + 1
+    want = tops.search_kernel_sharded(cpu, q.cpu())
+    for f in got._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("foresight", [True, False])
+def test_clustered_call_launches_no_grouping_pass(cuda, foresight):
+    """A K5 / K6 call is one launch: neither grouping pass runs, through
+    the wrapper or through search_kernel_sharded's clustered path."""
+    shl, keys = _index(cuda, 9, foresight)
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.choice(keys, 3 * T).astype(np.int32)).to(cuda)
+    _, args = _plan_args(shl, q)
+    (dense, _), (clus, _) = _kernels(shl)
+    passes = (tsg.group_by_key.launches, tsg.group_by_shard.launches)
+    before = clus.launches, dense.launches
+    clus(*_tables(shl), *args)
+    tops.search_kernel_sharded(shl, q, cluster=True)
+    assert (clus.launches, dense.launches) == (before[0] + 2, before[1])
+    assert (tsg.group_by_key.launches,
+            tsg.group_by_shard.launches) == passes
