@@ -119,18 +119,44 @@ Phases, one JSON line each:
    on the final predecessors; times, bounds from a replay that counts
    distinct records plus distinct runs x B x 4 bytes, path lengths, peak
    memory;
-11. the ``kernels`` line: every ported kernel with its main-path launches
-   (K5/K6's include those K10 made), the fat launches of K1-K6 as rows of
-   their own, ``fat_resolve``, ``search_kernel_mesh`` (K10),
-   ``group_by_shard`` (its launches on the four sharded main paths) and
-   ``group_by_key`` (its launches on the K1, K2, K8 and fat K1/K2 main
-   paths).
+11. the sample store (``data.store``, ``data.pipeline``) at the paper's
+   size, once per variant: the 2^25 keys as sample keys, rows ``[2^25,
+   129]`` int32 (17.3 GB) drawn on the card from a seeded generator, 64
+   shards, L = 21, ``use_kernel``; two 2^20 ``DataPipeline`` batches
+   through ``get_batch`` (K5/K6), a dense ``lookup`` (K3/K4), 256 ingests
+   and 256 evictions of new keys; found, row ids, tokens, ingested and
+   evicted keys, the sharded invariant checked, the stack's
+   ``range_scan`` refused (its int32 index wraps at 64 x 21 x 2^21); then
+   the monolithic store on every other key (2^24 samples, L = 26) through
+   K1/K2 and a 2048-key ``range_scan`` held against numpy; ``get_batch``,
+   ``lookup``, the same index's ``search_kernel_sharded`` and pipeline
+   times, us an update, build seconds, peak memory;
+12. the paged-KV page table (``serving.kvcache``) of a card's pool, once
+   per variant: 2^15 pages of 16 tokens (Llama-3-8B's KV at 64 GiB),
+   ``use_kernel`` and in-place rebalancing (8 shards of 16384 slots); 8
+   prefill bursts of 34 sequences of 16 blocks through ``try_alloc``
+   under a seeded ``FaultSchedule`` at ``kvcache.alloc`` (one forced pool
+   exhaustion, one forced capacity failure), a decode lookup of every
+   block of the newest 256 sequences (4096 lanes, K5/K6) a burst,
+   ``release`` of the oldest past 256; a request past a 256-page pool
+   that must grant a prefix; conservation, a host dict, the sharded
+   invariant and ``InvariantWatchdog`` over a stub engine checked; the
+   decode lookup's time and us an alloc and a release;
+13. the script's wall seconds, then the ``kernels`` line: every ported
+   kernel with its main-path launches (K5/K6's include those K10, the
+   store and the page table made; K1-K4's those of the store), the fat
+   launches of K1-K6 as rows of their own, ``fat_resolve``,
+   ``search_kernel_mesh`` (K10), ``group_by_shard`` (its launches on the
+   four sharded main paths and the store's dense lookups) and
+   ``group_by_key`` (its launches on the K1, K2, K8, fat K1/K2 and
+   monolithic store main paths).
 
 Then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check, build or launch raises, and the script exits non-zero.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -138,6 +164,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -151,12 +178,21 @@ from repro_torch.core import sharded as shd  # noqa: E402
 from repro_torch.core import skiplist as sl  # noqa: E402
 from repro_torch.core.validated import search_validated  # noqa: E402
 from repro_torch.core.versioned import VersionedIndex  # noqa: E402
+from repro_torch.data.pipeline import (DataPipeline,  # noqa: E402
+                                       PipelineConfig)
+from repro_torch.data.store import IndexedSampleStore, StoreConfig  # noqa: E402,E501
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import foresight_traverse as ft  # noqa: E402
 from repro_torch.kernels import mesh_launch as ml  # noqa: E402
 from repro_torch.kernels import shard_group as sg  # noqa: E402
 from repro_torch.kernels import validated_traverse as vt  # noqa: E402
 from repro_torch.launch.mesh import make_index_mesh  # noqa: E402
+from repro_torch.runtime.chaos import (CAPACITY_FAIL,  # noqa: E402
+                                       POOL_EXHAUSTED, FaultInjector,
+                                       FaultSchedule)
+from repro_torch.serving.kvcache import (PagedCacheConfig,  # noqa: E402
+                                         PageTable, page_key)
+from repro_torch.serving.watchdog import InvariantWatchdog  # noqa: E402
 
 SEED = 0
 # benchmarks/fig4_batch_sweep.py:3-4 (2^25 elements), benchmarks/common.py
@@ -2123,6 +2159,453 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
     return report
 
 
+# ---------------------------------------------------------------------------
+# The data plane and the serving index plane at full size
+# ---------------------------------------------------------------------------
+
+# benchmarks/macro_store.py and examples/index_service.py drive the store;
+# StoreConfig's defaults: rows of seq_len + 1 = 129 tokens, vocab 256.
+STORE_SEQ, STORE_VOCAB, STORE_PIPE_SEED = 128, 256, 17
+STORE_UPDATES = 256          # new keys ingested, then evicted
+# The monolithic store: the store's capacity rule (next power of two of 2n
+# + 4) gives 2^27 slots at 2^25 samples, where levels * capacity passes
+# 2^31 - 1 for any L >= 16 (the reference's int32 record index); 2^24
+# samples (every other key) keep 2^26 slots at L = ceil(log2 n) + 2 = 26.
+MONO_STORE_N, MONO_STORE_LEVELS = 2**24, 26
+SCAN_OUT = 2048
+# The page pool: Llama-3-8B (src/repro/configs/llama3_8b.py: 32 layers, 8
+# KV heads of 128) keeps 32 * 2 * 8 * 128 * 2 B = 128 KiB of bf16 KV a
+# token, so 2^15 pages of 16 tokens are 64 GiB of KV beside 16 GB of
+# weights on one 80 GB card.
+PT_PAGES, PT_PAGE_TOKENS, PT_LEVELS = 2**15, 16, 16
+PT_BLOCKS = 16               # blocks a sequence: 256-token contexts
+PT_RUNNING = 256             # sequences a decode step looks up: 4096 lanes
+# The stream is cut, not the pool: an inserted page costs ~20 ms on the
+# card (the update path is a host loop, ROADMAP 7b), so 8 bursts of 34
+# sequences (2 denied by faults) admit 270, 4320 pages (13% of the pool),
+# under two minutes a variant.  Filling the pool would take ~10 minutes,
+# so the request past the pool runs on a pool of PT_PAST_POOL pages, the
+# same configuration otherwise.
+PT_PREFILL, PT_BURSTS = 34, 8    # sequences admitted a burst; bursts
+PT_PAST_POOL = 256
+PT_FAULT_SEED = 1            # FaultSchedule.random at kvcache.alloc:
+                             # pool_exhausted at burst 4, capacity_fail at 7
+
+
+def store_rows(n: int) -> torch.Tensor:
+    """``[n, 129]`` int32 tokens drawn on the card from a seeded generator
+    (the Markov corpus is a numpy draw, held equal on the CPU)."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED)
+    return torch.randint(0, STORE_VOCAB, (n, STORE_SEQ + 1), generator=g,
+                         dtype=torch.int32, device=DEVICE)
+
+
+def new_keys(keys_np: np.ndarray, n: int, seed: int) -> np.ndarray:
+    """``n`` distinct keys of [0, 2^26) that the store does not hold."""
+    rng = np.random.default_rng(seed)
+    cand = np.unique(rng.integers(0, FULL_SPAN, 4 * n))
+    cand = cand[~np.isin(cand, keys_np)]
+    return rng.permutation(cand)[:n].astype(np.int32)
+
+
+def launches_on(path_launches: dict, names) -> dict:
+    return {name: path_launches[name] for name in names}
+
+
+def check_batch(store: IndexedSampleStore, pipe: DataPipeline, step: int,
+                batch: dict, what: str) -> None:
+    """A pipeline batch against the rows it drew: every key found, the row
+    ids the positions ``batch_keys`` drew, the tokens those rows gathered
+    apart."""
+    keys = pipe.batch_keys(step)
+    pos = np.searchsorted(store.keys_np, keys)
+    check(bool(batch["found"].all()), f"{what}: every key found")
+    _, rid = store.lookup(torch.from_numpy(keys.astype(np.int32)))
+    check(np.array_equal(rid.cpu().numpy(), pos),
+          f"{what}: row ids are the drawn positions")
+    rows = store.rows[torch.from_numpy(pos).to(store.device)]
+    check(torch.equal(batch["tokens"], rows[:, :-1]) and
+          torch.equal(batch["labels"], rows[:, 1:]),
+          f"{what}: tokens and labels are the drawn rows")
+
+
+def store_full_size(keys_np: np.ndarray, rows: torch.Tensor,
+                    foresight: bool) -> tuple:
+    """The sample store at the paper's size: 2^25 samples (the chip_smoke
+    keys), rows ``[2^25, 129]`` on the card, 64 shards of L = 21 (the
+    sharded configuration), ``use_kernel``.  Traffic: two 2^20 pipeline
+    batches through ``get_batch`` (clustered: K5/K6, or K7), one dense
+    ``lookup`` (K3/K4), 256 ingests and 256 evictions of new keys; the
+    stack's ``range_scan`` is refused (the reference's int32 stack index
+    wraps at 64 x 21 x 2^21).  Then the monolithic store (every other key,
+    2^24 samples, L = 26): a pipeline batch through K1/K2 and a range scan
+    held against numpy.  Returns (report, launches on the main paths)."""
+    stage_s, t_stage = {}, time.perf_counter()
+    t_phase = t_stage
+
+    def lap(stage: str) -> None:
+        nonlocal t_stage
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage_s[stage] = stage_s.get(stage, 0.0) + now - t_stage
+        t_stage = now
+
+    v = variant(foresight)
+    dense, clus = sharded_names(foresight)
+    mono = "foresight_traverse" if foresight else "base_traverse"
+    torch.cuda.reset_peak_memory_stats()
+    cfg = StoreConfig(n_samples=FULL_N, seq_len=STORE_SEQ,
+                      index_levels=SHARD_LEVELS, foresight=foresight,
+                      use_kernel=True, n_shards=SHARDS, seed=SEED)
+    fresh = new_keys(keys_np, STORE_UPDATES, SEED + 7)
+    fresh_t = torch.from_numpy(fresh).to(DEVICE)
+    fresh_rows = torch.arange(STORE_UPDATES, dtype=torch.int32,
+                              device=DEVICE)
+
+    # The main path, with every launch counter at 0 just before it.
+    reset_launches()
+    t0 = time.perf_counter()
+    store = IndexedSampleStore(cfg, rows=rows, keys=keys_np, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pipe = DataPipeline(store, PipelineConfig(global_batch=FULL_BATCH,
+                                              seed=STORE_PIPE_SEED))
+    batches = [pipe.get_batch(step) for step in (0, 1)]
+    q_dense = torch.from_numpy(pipe.batch_keys(2).astype(np.int32))
+    store.cfg.clustered = False
+    dense_found, dense_rid = store.lookup(q_dense)
+    store.cfg.clustered = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ingest_res = store.ingest(fresh_t, fresh_rows)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    after_ingest = store.lookup(fresh_t)
+    t0 = time.perf_counter()
+    evict_res = store.evict(fresh_t)
+    torch.cuda.synchronize()
+    evict_s = time.perf_counter() - t0
+    after_evict = store.lookup(fresh_t)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    lap("main_path")
+    for name in (dense, clus, "group_by_shard"):
+        check(launches[name] >= 1, f"store path launched {name}")
+
+    for step, batch in enumerate(batches):
+        check_batch(store, pipe, step, batch, f"{v} store batch {step}")
+    d_keys = q_dense.numpy()
+    check(bool(dense_found.all()) and np.array_equal(
+        dense_rid.cpu().numpy(), np.searchsorted(store.keys_np, d_keys)),
+        f"{v} dense lookup (K3/K4): found, row ids")
+    check(bool(ingest_res.all()) and bool(evict_res.all()),
+          f"{v} every ingest and eviction applied")
+    check(bool(after_ingest[0].all()) and torch.equal(after_ingest[1],
+                                                      fresh_rows),
+          f"{v} ingested keys found with their rows")
+    check(not bool(after_evict[0].any()), f"{v} evicted keys missed")
+    check(bool(shd.check_sharded_invariant(store.index, expect_n=FULL_N)),
+          f"{v} sharded invariant and live count after ingest + evict")
+    wraps = SHARDS * SHARD_LEVELS * store.index.shard_capacity > \
+        shd.MAX_INDEX
+    try:
+        store.range_scan(int(keys_np[0]), int(keys_np[-1]), SCAN_OUT)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check(("2**31 - 1" in refused) == wraps,
+          f"{v} range_scan refused exactly where the reference's int32 "
+          "stack index wraps (64 x 21 x 2^21 does)")
+    lap("checks")
+
+    keys_t = torch.from_numpy(pipe.batch_keys(0).astype(np.int32)).to(
+        DEVICE)
+    t = {"get_batch_ms": time_ms(lambda: store.get_batch(keys_t),
+                                 KERNEL_REPS),
+         "lookup_ms": time_ms(lambda: store.lookup(keys_t), KERNEL_REPS),
+         "search_kernel_sharded_ms": time_ms(
+             lambda: ops.search_kernel_sharded(store.index, keys_t),
+             KERNEL_REPS),
+         "pipeline_get_batch_ms": time_ms(lambda: pipe.get_batch(3),
+                                          PLAIN_REPS)}
+    store.cfg.clustered = False
+    t["dense_lookup_ms"] = time_ms(lambda: store.lookup(keys_t),
+                                   KERNEL_REPS)
+    store.cfg.clustered = True
+    t["store_overhead_ms"] = t["lookup_ms"] - t["search_kernel_sharded_ms"]
+    lap("timing")
+    report = {"phase": "store_full_size", "variant": v, "store": "sharded",
+              "n": FULL_N,
+              "seq_len": STORE_SEQ, "shards": store.n_shards,
+              "levels": SHARD_LEVELS,
+              "shard_capacity": store.index.shard_capacity,
+              "rows_gb": rows.numel() * 4 / 1e9,
+              "index_gb": sum(x.numel() * x.element_size()
+                              for x in store.index.shards
+                              if x is not None) / 1e9,
+              "batch": FULL_BATCH, "build_s": build_s, **t,
+              "get_batch_mrows_per_s": FULL_BATCH / t["get_batch_ms"] / 1e3,
+              "ingest_us_per_op": ingest_s / STORE_UPDATES * 1e6,
+              "evict_us_per_op": evict_s / STORE_UPDATES * 1e6,
+              "range_scan": refused.split(":")[0] or "ran",
+              "launches": launches_on(launches, (dense, clus,
+                                                 "group_by_shard"))}
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    report["stage_s"] = dict(stage_s)
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+    del store, pipe, batches, after_ingest, after_evict
+    torch.cuda.empty_cache()
+
+    # The monolithic store (K1/K2) and its range scan.  n_shards=1: the
+    # reference's auto rule would shard it for its VMEM budget (and raises
+    # at this size).
+    t_mono = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mono_keys = keys_np[::2]
+    mcfg = StoreConfig(n_samples=MONO_STORE_N, seq_len=STORE_SEQ,
+                       index_levels=MONO_STORE_LEVELS, foresight=foresight,
+                       use_kernel=True, n_shards=1, seed=SEED)
+    reset_launches()
+    t0 = time.perf_counter()
+    mstore = IndexedSampleStore(mcfg, rows=rows[:MONO_STORE_N],
+                                keys=mono_keys, device=DEVICE)
+    torch.cuda.synchronize()
+    mono_build_s = time.perf_counter() - t0
+    mpipe = DataPipeline(mstore, PipelineConfig(global_batch=FULL_BATCH,
+                                                seed=STORE_PIPE_SEED))
+    mbatch = mpipe.get_batch(0)
+    lo = int(mono_keys[MONO_STORE_N // 2])
+    scan = mstore.range_scan(lo, FULL_SPAN, SCAN_OUT)
+    torch.cuda.synchronize()
+    mlaunch = read_launches()
+    lap("monolithic_main_path")
+    check(not mstore.sharded and mlaunch[mono] >= 1
+          and mlaunch["group_by_key"] >= 1,
+          f"monolithic store path launched {mono} and its key pass")
+    check_batch(mstore, mpipe, 0, mbatch, f"{v} monolithic store batch")
+    at = MONO_STORE_N // 2
+    want_k = mono_keys[at:at + SCAN_OUT]
+    check(int(scan[2]) == SCAN_OUT and np.array_equal(
+        scan[0].cpu().numpy(), want_k) and np.array_equal(
+        scan[1].cpu().numpy(), np.arange(at, at + SCAN_OUT)),
+        f"{v} range_scan equals the numpy oracle (keys, row ids)")
+    mkeys = torch.from_numpy(mpipe.batch_keys(0).astype(np.int32)).to(
+        DEVICE)
+    mreport = {
+        "phase": "store_full_size", "variant": v, "store": "monolithic",
+        "n": MONO_STORE_N, "levels": MONO_STORE_LEVELS,
+        "capacity": mstore.index.capacity, "build_s": mono_build_s,
+        "get_batch_ms": time_ms(lambda: mstore.get_batch(mkeys),
+                                KERNEL_REPS),
+        "search_kernel_ms": time_ms(
+            lambda: ops.search_kernel(mstore.index, mkeys), KERNEL_REPS),
+        "range_scan_ms": time_ms(
+            lambda: mstore.range_scan(lo, FULL_SPAN, SCAN_OUT), 1),
+        "scan_out": SCAN_OUT,
+        "launches": launches_on(mlaunch, (mono, "group_by_key"))}
+    lap("monolithic_checks_and_timing")
+    mreport["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    mreport["stage_s"] = stage_s
+    mreport["seconds"] = time.perf_counter() - t_mono
+    emit(mreport)
+    del mstore, mpipe, mbatch
+    torch.cuda.empty_cache()
+    return report, {**report["launches"], **mreport["launches"]}
+
+
+class ServeStub:
+    """The surface ``InvariantWatchdog.check`` reads of a serving engine:
+    the page table, the running sequences (one slot each, ``PT_BLOCKS``
+    blocks), an empty queue and a session table keyed by sequence id."""
+
+    def __init__(self, pages: PageTable, running, steps: int):
+        self.pages, self.steps, self.queue = pages, steps, []
+        self.slots = [SimpleNamespace(rid=int(s)) for s in running]
+        k = torch.tensor(sorted(int(s) for s in running), dtype=torch.int32)
+        cap = 1 << (len(running) + 2).bit_length()
+        self.sessions = sl.build(k, k, capacity=max(cap, 16), levels=12,
+                                 device=DEVICE)
+
+    @staticmethod
+    def blocks_of(_req) -> int:
+        return PT_BLOCKS
+
+
+def page_table_full_size(foresight: bool) -> tuple:
+    """A page pool one card serves: ``PagedCacheConfig(n_pages=2^15,
+    page_tokens=16, levels=16, use_kernel=True, rebalance=True)`` (the
+    reference's rule: 8 shards of 16384 slots).  ``PT_BURSTS`` bursts:
+    ``try_alloc`` of ``PT_PREFILL`` new sequences of 16 blocks (a seeded
+    ``FaultSchedule`` at ``kvcache.alloc`` forces a zero grant or a failed
+    one), a decode step that looks up every block of the newest 256
+    running sequences (4096 lanes; K5/K6), and ``release`` of the oldest
+    past 256.  Then one ``try_alloc`` past a pool of ``PT_PAST_POOL``
+    pages, which must grant the free prefix.  Checks: conservation after every burst, every lookup against
+    a host dict, the sharded invariant, the watchdog over ``ServeStub``.
+    Returns (report, launches on the main path)."""
+    stage_s, t_stage = {}, time.perf_counter()
+    t_phase = t_stage
+
+    def lap(stage: str) -> None:
+        nonlocal t_stage
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage_s[stage] = stage_s.get(stage, 0.0) + now - t_stage
+        t_stage = now
+
+    v = variant(foresight)
+    _, clus = sharded_names(foresight)
+    cfg = PagedCacheConfig(n_pages=PT_PAGES, page_tokens=PT_PAGE_TOKENS,
+                           levels=PT_LEVELS, foresight=foresight,
+                           use_kernel=True, rebalance=True, seed=SEED)
+    faults = FaultSchedule.random(PT_FAULT_SEED, n_steps=PT_BURSTS,
+                                  n_faults=2, sites=("kvcache.alloc",))
+    check({f.kind for f in faults} == {POOL_EXHAUSTED, CAPACITY_FAIL} and
+          len({f.step for f in faults}) == 2,
+          "the fault schedule holds both kinds at two bursts")
+    inj = FaultInjector(faults)
+    blocks = np.arange(PT_BLOCKS)
+    oracle, running, finished = {}, [], []
+    counts = {"alloc_blocks": 0, "release_blocks": 0, "decode_lanes": 0,
+              "denied": 0}
+    secs = {"alloc": 0.0, "release": 0.0}
+    conserved = True
+
+    def decode(seqs):
+        sq = np.repeat(np.asarray(seqs, np.int64), PT_BLOCKS)
+        bk = np.tile(blocks, len(seqs))
+        return sq, bk, pt.lookup(sq, bk)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    pt = PageTable(cfg, chaos=inj, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    S0, next_seq, lookups = pt.index.n_shards, 0, []
+    for burst in range(PT_BURSTS):
+        inj.advance(burst)
+        for _ in range(PT_PREFILL):
+            t0 = time.perf_counter()
+            ok, pages = pt.try_alloc(np.full(PT_BLOCKS, next_seq), blocks)
+            secs["alloc"] += time.perf_counter() - t0
+            if ok.all():
+                oracle.update({(next_seq, b): int(p)
+                               for b, p in zip(blocks, pages)})
+                running.append(next_seq)
+                counts["alloc_blocks"] += PT_BLOCKS
+            else:
+                check(not ok.any(), "a fault denies the whole grant")
+                counts["denied"] += 1
+            next_seq += 1
+        sq, bk, (found, got) = decode(running[-PT_RUNNING:])
+        want_p = np.array([oracle[(s, b)] for s, b in zip(sq.tolist(),
+                                                          bk.tolist())])
+        lookups.append((found, got, want_p))
+        counts["decode_lanes"] += sq.size
+        while len(running) > PT_RUNNING:
+            seq = running.pop(0)
+            t0 = time.perf_counter()
+            freed = pt.release(seq, PT_BLOCKS)
+            secs["release"] += time.perf_counter() - t0
+            check(freed == PT_BLOCKS, "release frees every block")
+            counts["release_blocks"] += PT_BLOCKS
+            for b in blocks:
+                del oracle[(seq, b)]
+            finished.append(seq)
+        conserved &= len(pt.free) + pt.n_live == PT_PAGES
+    # past the pool, on a pool of PT_PAST_POOL pages: one request for a
+    # sequence more than the pool holds
+    small = PageTable(dataclasses.replace(cfg, n_pages=PT_PAST_POOL),
+                      device=DEVICE)
+    want = PT_PAST_POOL + PT_BLOCKS
+    seq_ids = np.arange(want) // PT_BLOCKS
+    blk_ids = np.arange(want) % PT_BLOCKS
+    t0 = time.perf_counter()
+    ok, pages = small.try_alloc(seq_ids, blk_ids)
+    past_s = time.perf_counter() - t0
+    past_found, past_got = small.lookup(seq_ids, blk_ids)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    lap("main_path")
+    check(launches[clus] >= 1, f"page-table path launched {clus}")
+
+    check(conserved and len(pt.free) + pt.n_live == PT_PAGES,
+          f"{v} free + live == n_pages after every burst")
+    check(ok.sum() == PT_PAST_POOL and ok[:PT_PAST_POOL].all()
+          and small.n_free == 0 and small.n_live == PT_PAST_POOL,
+          f"{v} try_alloc past the pool grants the free prefix")
+    check(np.array_equal(past_found.cpu().numpy(), ok) and np.array_equal(
+        past_got.cpu().numpy(), np.where(ok, pages, sl.NULL_VAL)),
+        f"{v} the granted prefix is mapped, the rest is not")
+    check(bool(shd.check_sharded_invariant(small.index,
+                                           expect_n=PT_PAST_POOL)),
+          f"{v} sharded invariant of the filled pool")
+    check(sorted(f.kind for f in inj.fired) ==
+          sorted(f.kind for f in faults) and counts["denied"] == len(faults),
+          f"{v} every scheduled fault fired and denied its grant")
+    for i, (found, got, want_p) in enumerate(lookups):
+        check(bool(found.all()) and np.array_equal(got.cpu().numpy(),
+                                                   want_p),
+              f"{v} decode step {i}: every block found at its page")
+    # the final state against the host dict: live blocks and finished ones
+    probe = running[-PT_RUNNING:] + finished[:PT_RUNNING // 4]
+    sq, bk, (found, got) = decode(probe)
+    want_p = np.array([oracle.get((int(s), int(b)), sl.NULL_VAL)
+                       for s, b in zip(sq, bk)])
+    check(np.array_equal(found.cpu().numpy(), want_p >= 0) and
+          np.array_equal(got.cpu().numpy(), want_p),
+          f"{v} lookups equal the host dict (live and finished blocks)")
+    check(pt.index.n_shards == S0, f"{v} the shard axis stays at the "
+                                   "ceiling")
+    check(bool(shd.check_sharded_invariant(pt.index, expect_n=pt.n_live)),
+          f"{v} sharded invariant and live count")
+    stub = ServeStub(pt, sorted({int(s) for (s, _) in oracle}), PT_BURSTS)
+    report_wd = InvariantWatchdog().check(stub)
+    check(report_wd.ok, f"{v} invariant watchdog green")
+    lap("checks")
+
+    sq, bk, _ = decode(running[-PT_RUNNING:])
+    decode_ms = time_ms(lambda: pt.lookup(sq, bk), KERNEL_REPS)
+    keys = torch.from_numpy(page_key(sq, bk).astype(np.int32)).to(DEVICE)
+    kernel_ms = time_ms(lambda: ops.search_kernel(pt.index, keys),
+                        KERNEL_REPS)
+    lap("timing")
+    live_shards = int((pt.index.boundaries != sl.KEY_MAX).sum())
+    report = {"phase": "page_table_full_size", "variant": v,
+              "n_pages": PT_PAGES, "page_tokens": PT_PAGE_TOKENS,
+              "levels": PT_LEVELS, "shards": S0,
+              "shard_capacity": pt.index.shard_capacity,
+              "live_shards": live_shards, "build_s": build_s,
+              "sequences_admitted": counts["alloc_blocks"] // PT_BLOCKS,
+              "sequences_released": len(finished),
+              "faults_fired": [f.kind for f in inj.fired],
+              "pool_fill": pt.n_live / PT_PAGES,
+              "past_pool": {"n_pages": PT_PAST_POOL, "request": int(want),
+                            "granted": int(ok.sum()), "seconds": past_s,
+                            "live_shards": int((small.index.boundaries
+                                                != sl.KEY_MAX).sum())},
+              **counts,
+              "alloc_us_per_block": secs["alloc"] / counts["alloc_blocks"]
+              * 1e6,
+              "release_us_per_block": secs["release"]
+              / max(1, counts["release_blocks"]) * 1e6,
+              "past_pool_us_per_block": past_s / int(ok.sum()) * 1e6,
+              "decode_lanes_per_step": int(sq.size),
+              "decode_lookup_ms": decode_ms,
+              "search_kernel_sharded_ms": kernel_ms,
+              "launches": launches_on(launches, (clus,)),
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "stage_s": stage_s,
+              "seconds": time.perf_counter() - t_phase}
+    emit(report)
+    del pt, small, stub
+    torch.cuda.empty_cache()
+    return report, report["launches"]
+
+
 def zipf_queries(keys: np.ndarray, batch: int, a: float = ZIPF_A,
                  seed: int = 1) -> np.ndarray:
     """benchmarks/common.py:55-60: Zipf(a) over the key population by rank."""
@@ -2131,6 +2614,7 @@ def zipf_queries(keys: np.ndarray, batch: int, a: float = ZIPF_A,
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     smi = card_identity()
@@ -2256,7 +2740,22 @@ def main() -> None:
     for r in fat_rows:
         check(r["launches"] > 0, f"{r['name']} launched on its path")
     rows += fat_rows + [k9]
+
+    # The data plane and the serving index plane over the same kernels:
+    # their main paths' launches join the kernels' rows.
+    torch.cuda.empty_cache()
+    by_name = {r["name"]: r for r in rows}
+    rows_t = store_rows(FULL_N)
+    plane_runs = [store_full_size(keys_np, rows_t, fs) for fs in (True,
+                                                                  False)]
+    del rows_t
+    torch.cuda.empty_cache()
+    plane_runs += [page_table_full_size(fs) for fs in (True, False)]
+    for _, paths in plane_runs:
+        for name, n in paths.items():
+            by_name[name]["launches"] += n
     dist.destroy_process_group()
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

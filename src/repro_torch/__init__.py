@@ -10,8 +10,13 @@ kernels and their plain versions), ``kernels.ops`` (batched lookup through
 the kernels), ``core.sharded`` and ``core.rebalance_traced`` (range
 shards, their rebalancing on the host and in place), ``core.mesh_index``,
 ``launch.mesh`` and ``kernels.mesh_launch`` (the index across the devices
-of a ``torch.distributed`` mesh) and ``convert`` (state exchange with
-``repro`` as numpy arrays).
+of a ``torch.distributed`` mesh), ``data.store`` and ``data.pipeline``
+(the skiplist-indexed sample store and its deterministic pipeline),
+``serving.kvcache`` and ``serving.watchdog`` (the paged KV cache's page
+table and its invariant checks), ``runtime.chaos`` and ``runtime.ft``
+(fault injection and fault tolerance, numpy only), ``launch.index_service``
+(the twin of ``examples/index_service.py``) and ``convert`` (state
+exchange with ``repro`` as numpy arrays).
 
 The package imports torch and numpy only.  State-creating entry points run
 on the GPU unless the caller passes ``device="cpu"``.

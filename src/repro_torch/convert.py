@@ -8,7 +8,9 @@ a ``ShardedSkipList``, under the keys ``shards.<field>`` and
 ``boundaries``.  Fat-layout states carry ``fat_keys``, ``fat_vals`` and
 ``nlen`` as well.  ``mesh_local_from_numpy`` / ``mesh_to_numpy`` carry
 one device's slice of a mesh index, under ``local.shards.<field>``,
-``local.boundaries`` and ``device_boundaries``.
+``local.boundaries`` and ``device_boundaries``.  ``store_to_numpy`` and
+``page_table_to_numpy`` take the whole state of a data-plane sample store
+(index and rows) or of a page table (index and free list).
 """
 from __future__ import annotations
 
@@ -93,4 +95,29 @@ def mesh_to_numpy(mx: MeshShardedIndex) -> Dict[str, np.ndarray]:
     (slice ``rank`` of the reference's stacked arrays)."""
     out = {f"local.{k}": v for k, v in sharded_to_numpy(mx.local).items()}
     out["device_boundaries"] = mx.device_boundaries.cpu().numpy()
+    return out
+
+
+def index_to_numpy(index) -> Dict[str, np.ndarray]:
+    """Any of the three index kinds, through its converter above."""
+    if isinstance(index, MeshShardedIndex):
+        return mesh_to_numpy(index)
+    if isinstance(index, ShardedSkipList):
+        return sharded_to_numpy(index)
+    return state_to_numpy(index)
+
+
+def store_to_numpy(store) -> Dict[str, np.ndarray]:
+    """A ``data.store.IndexedSampleStore``'s index (keys prefixed
+    ``index.``) and ``rows``, copied to host."""
+    out = {f"index.{k}": v for k, v in index_to_numpy(store.index).items()}
+    out["rows"] = store.rows.cpu().numpy()
+    return out
+
+
+def page_table_to_numpy(pt) -> Dict[str, np.ndarray]:
+    """A ``serving.kvcache.PageTable``'s index (keys prefixed ``index.``)
+    and its ``free`` list in order."""
+    out = {f"index.{k}": v for k, v in index_to_numpy(pt.index).items()}
+    out["free"] = np.array(pt.free, np.int64)
     return out
