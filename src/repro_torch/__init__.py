@@ -14,10 +14,19 @@ of a ``torch.distributed`` mesh), ``data.store`` and ``data.pipeline``
 (the skiplist-indexed sample store and its deterministic pipeline),
 ``serving.kvcache`` and ``serving.watchdog`` (the paged KV cache's page
 table and its invariant checks), ``runtime.chaos`` and ``runtime.ft``
-(fault injection and fault tolerance, numpy only), ``launch.index_service``
-(the twin of ``examples/index_service.py``) and ``convert`` (state
-exchange with ``repro`` as numpy arrays).
+(fault injection and fault tolerance, numpy only), ``models.layers``,
+``models.moe``, ``models.mamba``, ``models.rwkv6`` and
+``models.transformer`` (the LLM substrate: every family's forward,
+prefill and decode, bf16 with fp32 accumulation), ``configs`` (the ten
+architectures and their smoke configs), ``serving.engine`` (the
+continuous-batching ``ServeEngine`` over the session skiplist, the page
+table, the watchdog and the chaos injector), ``launch.serve``,
+``launch.serve_lm``, ``launch.quickstart`` and ``launch.index_service``
+(the entry points, twins of ``launch/serve.py`` and the examples) and
+``convert`` (state, param and cache exchange with ``repro`` as numpy
+arrays).
 
 The package imports torch and numpy only.  State-creating entry points run
-on the GPU unless the caller passes ``device="cpu"``.
+on the GPU unless the caller passes ``device="cpu"``; random numbers come
+from an explicit ``torch.Generator``.
 """

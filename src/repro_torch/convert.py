@@ -11,10 +11,18 @@ one device's slice of a mesh index, under ``local.shards.<field>``,
 ``local.boundaries`` and ``device_boundaries``.  ``store_to_numpy`` and
 ``page_table_to_numpy`` take the whole state of a data-plane sample store
 (index and rows) or of a page table (index and free list).
+
+``params_from_numpy`` / ``params_to_numpy`` carry a model's param tree
+(nested dicts and lists, as both packages build it) through flat keys such
+as ``"blocks.0.mixer.wq"``, with shapes and dtypes kept;
+``cache_from_numpy`` / ``cache_to_numpy`` do the same for ``init_cache``'s
+tree.  numpy has no bfloat16 of its own: a bf16 leaf crosses as its
+``uint16`` bit pattern (an ``ml_dtypes.bfloat16`` array is taken as its
+bits too), so that the weights cross bit for bit.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,3 +129,73 @@ def page_table_to_numpy(pt) -> Dict[str, np.ndarray]:
     out = {f"index.{k}": v for k, v in index_to_numpy(pt.index).items()}
     out["free"] = np.array(pt.free, np.int64)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Model params and decode caches
+# ---------------------------------------------------------------------------
+
+def flat_items(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """``("a.0.b", leaf)`` pairs of a tree of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flat_items(v, f"{prefix}{k}.")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from flat_items(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _listify(node: Any) -> Any:
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
+        bits = np.array(a, copy=True).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def _array(t: torch.Tensor, bf16: Optional[np.dtype]) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        bits = t.view(torch.int16).numpy().view(np.uint16)
+        return bits if bf16 is None else bits.view(bf16)
+    return t.numpy().copy()
+
+
+def params_from_numpy(flat: Dict[str, np.ndarray], device=None) -> Any:
+    """A tree of tensors (a model's params) from ``{"a.0.b": array}``: dict
+    keys, list indices (a node whose keys are all digits is a list),
+    leaves as tensors on ``device`` (``None``: the GPU)."""
+    dev = resolve_device(device)
+    root: Dict[str, Any] = {}
+    for key, a in flat.items():
+        *path, leaf = key.split(".")
+        node = root
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = _tensor(a, dev)
+    return _listify(root)
+
+
+def params_to_numpy(params: Any, bf16: Optional[np.dtype] = None
+                    ) -> Dict[str, np.ndarray]:
+    """``{"a.0.b": array}`` of a tree of tensors, copied to host.  A bf16
+    leaf comes out as its ``uint16`` bits, or viewed as ``bf16`` (e.g.
+    ``ml_dtypes.bfloat16``) when given."""
+    return {k: _array(t, bf16) for k, t in flat_items(params)}
+
+
+# A decode cache (``{"blocks": [...], "pos": ..., "enc_out": ...}``) is the
+# same kind of tree.
+cache_from_numpy = params_from_numpy
+cache_to_numpy = params_to_numpy

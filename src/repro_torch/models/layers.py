@@ -1,0 +1,356 @@
+"""Shared model layers: ParamBuilder, norms, rotary, attention, MLP (port
+of ``repro.models.layers``).
+
+Conventions
+-----------
+* Params are nested dicts (and lists) of tensors.  A single ``build_*``
+  function describes each module once; the ``ParamBuilder`` materializes
+  it as real tensors drawn from a ``torch.Generator`` (init), tensors on
+  the ``meta`` device (abstract: shapes and dtypes, nothing allocated) or
+  logical-axis tuples (axes) — one source of truth, three views.
+* Logical axes vocabulary: "layers" (the stacked reps), "embed"
+  (d_model), "ffn", "heads", "kv_heads", "head_dim", "vocab", "experts",
+  "inner" (mamba), "state", "conv", "frames".
+* Weights and activations are bf16.  Every product accumulates in fp32
+  and is rounded once to its output dtype (``matmul`` / ``contract``);
+  norms and softmax statistics run in fp32.  On the CPU the products run
+  on fp32 copies of their operands, so that the result does not depend on
+  how torch accumulates bf16 there; on the card a bf16 product is one
+  cuBLAS call with fp32 accumulation.  Products of two activations
+  (attention scores and values) run in fp32 on both devices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+PyTree = Any
+
+
+# ---------------------------------------------------------------------------
+# Products with fp32 accumulation
+# ---------------------------------------------------------------------------
+
+def _in_fp32(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether a product runs on fp32 copies: on the CPU, or with an fp32
+    operand (the reference promotes those to fp32)."""
+    return (a.device.type == "cpu" or a.dtype != torch.bfloat16
+            or b.dtype != torch.bfloat16)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           out_dtype: torch.dtype) -> torch.Tensor:
+    """``a [..., K] @ b [K, N] -> [..., N]`` in ``out_dtype``, fp32
+    accumulation (``preferred_element_type=float32`` and a cast)."""
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, a.shape[-1])
+    if _in_fp32(a, b):
+        out = (a2.float() @ b.float()).to(out_dtype)
+    elif out_dtype == torch.float32:
+        out = torch.mm(a2, b, out_dtype=torch.float32)
+    else:
+        out = (a2 @ b).to(out_dtype)
+    return out.reshape(*lead, b.shape[-1])
+
+
+def bmatmul(a: torch.Tensor, b: torch.Tensor,
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """Batched ``a [E, M, K] @ b [E, K, N]`` with ``matmul``'s rule."""
+    if _in_fp32(a, b):
+        return torch.bmm(a.float(), b.float()).to(out_dtype)
+    if out_dtype == torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a, b).to(out_dtype)
+
+
+def contract(x: torch.Tensor, w: torch.Tensor, n: int,
+             out_dtype: torch.dtype) -> torch.Tensor:
+    """Contract the last ``n`` dims of ``x`` with the first ``n`` of ``w``
+    (``"bsd,dhk->bshk"`` is ``n=1``, ``"bshk,hkd->bsd"`` is ``n=2``)."""
+    k = math.prod(w.shape[:n])
+    out = matmul(x.reshape(*x.shape[:x.dim() - n], k),
+                 w.reshape(k, -1), out_dtype)
+    return out.reshape(*x.shape[:x.dim() - n], *w.shape[n:])
+
+
+# ---------------------------------------------------------------------------
+# ParamBuilder — one description, three materializations
+# ---------------------------------------------------------------------------
+
+class ParamBuilder:
+    """mode in {"init", "abstract", "axes"}.
+
+    ``init`` draws from ``generator`` (a seeded ``torch.Generator``) on
+    the generator's device; ``abstract`` gives tensors on the ``meta``
+    device; ``axes`` gives the logical-axis tuples.
+    """
+
+    def __init__(self, mode: str, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.bfloat16):
+        assert mode in ("init", "abstract", "axes")
+        if mode == "init" and generator is None:
+            raise ValueError("init mode draws from a torch.Generator")
+        self.mode = mode
+        self.generator = generator
+        self.dtype = dtype
+
+    def param(self, shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
+              init: str = "normal", scale: float = 1.0,
+              dtype: Optional[torch.dtype] = None):
+        assert len(shape) == len(axes), (shape, axes)
+        dtype = dtype or self.dtype
+        shape = tuple(int(s) for s in shape)
+        if self.mode == "axes":
+            return axes
+        if self.mode == "abstract":
+            return torch.empty(shape, dtype=dtype, device="meta")
+        dev = self.generator.device
+        if init == "zeros":
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        if init == "ones":
+            return torch.ones(shape, dtype=dtype, device=dev)
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        std = scale / math.sqrt(max(fan_in, 1))
+        return (torch.randn(shape, generator=self.generator,
+                            dtype=torch.float32, device=dev)
+                .mul_(std).to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# Norms / rotary
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
+def rotary_embedding(positions: torch.Tensor, head_dim: int,
+                     theta: float = 10000.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [*(B,) S] -> (cos, sin) each [..., S, head_dim/2] fp32."""
+    half = head_dim // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor) -> torch.Tensor:
+    """x [..., S, H, D]; cos/sin [..., S, D/2] broadcast over heads."""
+    half = x.shape[-1] // 2
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (chunked online softmax) — O(S·chunk) memory
+# ---------------------------------------------------------------------------
+
+def _gqa(t: torch.Tensor, rep: int) -> torch.Tensor:
+    """[B, S, Hkv, D] -> [B, H, S, D] fp32, each kv head repeated ``rep``
+    times (``jnp.repeat(t, rep, axis=2)``)."""
+    return t.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_chunk: int = 512,
+                    kv_chunk: int = 512, q_offset: int = 0) -> torch.Tensor:
+    """q [B,Sq,H,D], k/v [B,Skv,Hkv,D] (GQA broadcast). Returns [B,Sq,H,D].
+
+    Online softmax over KV chunks inside a loop over Q chunks, with the
+    reference's chunk boundaries (so the same running max / sum updates);
+    a short last chunk stands for the reference's zero padding, whose
+    masked entries add exact zeros.  ``q_offset`` positions the query
+    block for causal masking (prefill continuation).
+    """
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Skv)
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    kg, vg = _gqa(k, rep), v.repeat_interleave(rep, dim=2).transpose(1, 2)
+    qh = q.float().transpose(1, 2)                           # [B,H,Sq,D]
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    for q0 in range(0, Sq, q_chunk):
+        qb = qh[:, :, q0:q0 + q_chunk]
+        nq = qb.shape[2]
+        qpos = q_offset + torch.arange(q0, q0 + nq, device=dev)
+        m = torch.full((B, H, nq), -1e30, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, nq), dtype=torch.float32, device=dev)
+        o = torch.zeros((B, H, nq, D), dtype=torch.float32, device=dev)
+        for k0 in range(0, Skv, kv_chunk):
+            kb = kg[:, :, k0:k0 + kv_chunk]
+            vb = vg[:, :, k0:k0 + kv_chunk]
+            s = torch.matmul(qb, kb.transpose(-1, -2)) * scale  # [B,H,q,k]
+            if causal:
+                kpos = torch.arange(k0, k0 + kb.shape[2], device=dev)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s,
+                                torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.matmul(p.to(v.dtype).float(), vb.float())
+            o = o * corr[..., None] + pv
+            m = m_new
+        norm = torch.clamp(l, min=1e-30)[..., None]
+        out[:, q0:q0 + nq] = (o / norm).transpose(1, 2).to(q.dtype)
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     length: torch.Tensor) -> torch.Tensor:
+    """Single-position attention vs a cache.
+
+    q [B,1,H,D]; caches [B,Smax,Hkv,D]; ``length`` [] or [B] — number of
+    valid cache slots.  fp32 softmax; GQA broadcast.
+    """
+    B, Smax, Hkv, D = k_cache.shape
+    rep = q.shape[2] // Hkv
+    kg = _gqa(k_cache, rep)                                  # [B,H,Smax,D]
+    s = torch.matmul(q.float().transpose(1, 2), kg.transpose(-1, -2)) \
+        / math.sqrt(D)                                       # [B,H,1,Smax]
+    pos = torch.arange(Smax, device=q.device)
+    valid = pos[None, :] < torch.as_tensor(length, device=q.device
+                                           ).reshape(-1, 1)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    vg = v_cache.repeat_interleave(rep, dim=2).transpose(1, 2)
+    o = torch.matmul(p.to(v_cache.dtype).float(), vg.float())
+    return o.transpose(1, 2).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (GQA + rotary), train/prefill + decode-with-cache
+# ---------------------------------------------------------------------------
+
+def build_attention(pb: ParamBuilder, d_model: int, n_heads: int,
+                    n_kv_heads: int, head_dim: int) -> PyTree:
+    return {
+        "wq": pb.param((d_model, n_heads, head_dim),
+                       ("embed", "heads", "head_dim")),
+        "wk": pb.param((d_model, n_kv_heads, head_dim),
+                       ("embed", "kv_heads", "head_dim")),
+        "wv": pb.param((d_model, n_kv_heads, head_dim),
+                       ("embed", "kv_heads", "head_dim")),
+        "wo": pb.param((n_heads, head_dim, d_model),
+                       ("heads", "head_dim", "embed")),
+    }
+
+
+def qkv(p: PyTree, x: torch.Tensor, src: Optional[torch.Tensor] = None):
+    """The three head projections ``"bsd,dhk->bshk"`` in ``x.dtype``; k and
+    v from ``src`` (cross-attention) when given."""
+    src = x if src is None else src
+    return (contract(x, p["wq"], 1, x.dtype),
+            contract(src, p["wk"], 1, x.dtype),
+            contract(src, p["wv"], 1, x.dtype))
+
+
+def attention_fwd(p: PyTree, x: torch.Tensor, positions: torch.Tensor, *,
+                  causal: bool = True,
+                  kv_override: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Full-sequence attention (training / prefill).
+
+    ``kv_override`` (encoder output) switches this into cross-attention.
+    Rotary runs at the default theta, as the reference's does.
+    """
+    q, k, v = qkv(p, x, kv_override)
+    if kv_override is None:                    # rotary only for self-attn
+        cos, sin = rotary_embedding(positions, q.shape[-1])
+        q = apply_rotary(q, cos, sin)
+        k = apply_rotary(k, cos, sin)
+    o = flash_attention(q, k, v, causal=causal and kv_override is None)
+    return contract(o, p["wo"], 2, x.dtype)
+
+
+def cache_write(cache: torch.Tensor, new: torch.Tensor,
+                slot: torch.Tensor, out: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """``cache`` [B,Smax,...] with ``new`` [B,1,...] at each row's ``slot``
+    (a one-hot select, as the reference's: a slot past ``Smax`` writes
+    nothing); into ``out`` when given."""
+    Smax = cache.shape[1]
+    onehot = (torch.arange(Smax, device=cache.device)[None, :]
+              == slot.reshape(-1, 1))
+    onehot = onehot.reshape(*onehot.shape, *([1] * (cache.dim() - 2)))
+    new = new.to(cache.dtype)
+    if out is None:
+        return torch.where(onehot, new, cache)
+    return torch.where(onehot, new, cache, out=out)
+
+
+def attention_decode(p: PyTree, x: torch.Tensor,
+                     cache: Dict[str, torch.Tensor], position: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode. cache = {"k": [B,Smax,Hkv,D], "v": ...,
+    "len": [B]}."""
+    q, k, v = qkv(p, x)
+    pos = position.reshape(-1)
+    cos, sin = rotary_embedding(pos[:, None], q.shape[-1])
+    q = apply_rotary(q, cos, sin)
+    k = apply_rotary(k, cos, sin)
+    slot = cache["len"].reshape(-1)
+    k_cache = cache_write(cache["k"], k, slot)
+    v_cache = cache_write(cache["v"], v, slot)
+    new_len = cache["len"] + 1
+    o = decode_attention(q, k_cache, v_cache, new_len)
+    out = contract(o, p["wo"], 2, x.dtype)
+    return out, {"k": k_cache, "v": v_cache, "len": new_len}
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU) and embedding
+# ---------------------------------------------------------------------------
+
+def build_mlp(pb: ParamBuilder, d_model: int, d_ff: int) -> PyTree:
+    return {
+        "w_gate": pb.param((d_model, d_ff), ("embed", "ffn")),
+        "w_up": pb.param((d_model, d_ff), ("embed", "ffn")),
+        "w_down": pb.param((d_ff, d_model), ("ffn", "embed")),
+    }
+
+
+def mlp_fwd(p: PyTree, x: torch.Tensor) -> torch.Tensor:
+    g = matmul(x, p["w_gate"], torch.float32)
+    u = matmul(x, p["w_up"], torch.float32)
+    h = (torch.nn.functional.silu(g) * u).to(x.dtype)
+    return matmul(h, p["w_down"], x.dtype)
+
+
+def build_embedding(pb: ParamBuilder, vocab: int, d_model: int) -> PyTree:
+    return {"table": pb.param((vocab, d_model), ("vocab", "embed"),
+                              scale=1.0)}
+
+
+def embed_fwd(p: PyTree, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens.long()]
+
+
+def unembed_fwd(p: PyTree, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: logits in fp32 (loss stability)."""
+    return matmul(x, p["table"].t(), torch.float32)

@@ -1,0 +1,504 @@
+"""Unified model stack for all assigned architectures (port of
+``repro.models.transformer``).
+
+A model is a repeating **super-block pattern**: ``pattern_len`` consecutive
+layers whose shapes repeat ``reps = n_layers / pattern_len`` times.  Each
+pattern position has a mixer (attention / mamba / rwkv6) and an FFN (dense
+MLP / MoE).  Params for each position are stacked along a leading "layers"
+axis ``[reps, ...]``, as the reference's are, so that params carry across
+as arrays of the same shape; the reference's ``lax.scan`` over the stack
+is a loop over the rep index ``r`` here.
+
+Families:
+* dense   — pattern [attention + MLP]
+* moe     — pattern [attention + MoE]
+* ssm     — pattern [rwkv6 + MLP]
+* hybrid  — Jamba: pattern of 8 = 7×mamba + 1×attention, MoE every 2nd layer
+* vlm     — dense + patch-embedding stub prepended to the token sequence
+* audio   — whisper: bidirectional encoder stack + decoder with cross-attn
+
+The reference's sharding context ``cs``, its ``decode_attn_fn`` override
+and its rematerialisation policy are sharding and training concerns that
+the port does not take (``ModelConfig.remat`` is kept as a value).  Its
+quirks are kept: ``forward`` runs rotary at the default theta
+(``layers.attention_fwd``), while ``prefill`` and ``decode_step`` use
+``rope_theta``; decode's MoE runs at capacity factor 8.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.skiplist import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as R
+
+PyTree = Any
+
+
+# ---------------------------------------------------------------------------
+# Config
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    pattern_len: int = 1
+    attn_positions: Tuple[int, ...] = (0,)
+    moe_positions: Tuple[int, ...] = ()
+    mixer: str = "attention"        # mixer for non-attention positions
+    enc_layers: int = 0             # whisper encoder depth
+    n_extra_embeds: int = 0         # vlm patches / audio frames (stub frontend)
+    rope_theta: float = 10000.0
+    capacity_factor: float = 1.25
+    remat: str = "dots"             # "none" | "dots" | "full" (training)
+    sub_quadratic: bool = False     # True -> eligible for long_500k
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // self.n_heads)
+        assert self.n_layers % self.pattern_len == 0
+
+    @property
+    def reps(self) -> int:
+        return self.n_layers // self.pattern_len
+
+    def position_kind(self, pos: int) -> Tuple[str, str]:
+        mixer = "attention" if pos in self.attn_positions else self.mixer
+        ffn = "moe" if (self.moe_experts and
+                        (pos in self.moe_positions or not self.moe_positions)
+                        ) else "mlp"
+        return mixer, ffn
+
+    def pattern(self) -> List[Tuple[str, str]]:
+        return [self.position_kind(i) for i in range(self.pattern_len)]
+
+    def param_count(self) -> int:
+        """Total parameters (for MODEL_FLOPS = 6·N·D accounting)."""
+        return sum(t.numel() for t in leaves(abstract_params(self)))
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of experts)."""
+        if not self.moe_experts:
+            return self.param_count()
+        total = self.param_count()
+        # subtract inactive expert fraction of stacked expert weights
+        inactive = 0
+        for blk in abstract_params(self)["blocks"]:
+            ffn = blk.get("ffn", {})
+            if "w_gate" in ffn and ffn["w_gate"].dim() == 4:   # [reps,E,d,f]
+                e = ffn["w_gate"].shape[1]
+                frac = 1.0 - self.moe_top_k / e
+                for k in ("w_gate", "w_up", "w_down"):
+                    inactive += int(frac * math.prod(ffn[k].shape))
+        return total - inactive
+
+
+def leaves(tree: PyTree) -> List[Any]:
+    """The leaves of a tree of dicts and lists, in key order (a tuple, as
+    the logical axes are, is a leaf)."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]
+
+
+def _at(tree: PyTree, r: int) -> PyTree:
+    """Rep ``r`` of a tree of stacked ``[reps, ...]`` tensors."""
+    if isinstance(tree, dict):
+        return {k: _at(v, r) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_at(v, r) for v in tree]
+    return tree[r]
+
+
+# ---------------------------------------------------------------------------
+# Param construction (init / abstract / logical-axes from one description)
+# ---------------------------------------------------------------------------
+
+class _Stacked:
+    """Prepends the stacked-layer dim to every param of a block."""
+
+    def __init__(self, pb: L.ParamBuilder, reps: int):
+        self.pb = pb
+        self.reps = reps
+
+    def param(self, shape, axes, **kw):
+        return self.pb.param((self.reps,) + tuple(shape),
+                             ("layers",) + tuple(axes), **kw)
+
+
+def _build_block(spb, cfg: ModelConfig, mixer: str, ffn: str) -> PyTree:
+    blk: Dict[str, PyTree] = {
+        "ln1": spb.param((cfg.d_model,), ("embed",), init="ones",
+                         dtype=torch.float32),
+        "ln2": spb.param((cfg.d_model,), ("embed",), init="ones",
+                         dtype=torch.float32),
+    }
+    if mixer == "attention":
+        blk["mixer"] = L.build_attention(spb, cfg.d_model, cfg.n_heads,
+                                         cfg.n_kv_heads, cfg.head_dim)
+    elif mixer == "mamba":
+        blk["mixer"] = M.build_mamba(spb, cfg.d_model)
+    elif mixer == "rwkv6":
+        blk["mixer"] = R.build_rwkv6(spb, cfg.d_model)
+    else:
+        raise ValueError(mixer)
+    if ffn == "moe":
+        blk["ffn"] = MOE.build_moe(spb, cfg.d_model, cfg.d_ff,
+                                   cfg.moe_experts)
+    else:
+        blk["ffn"] = L.build_mlp(spb, cfg.d_model, cfg.d_ff)
+    return blk
+
+
+def _build_params(cfg: ModelConfig, pb: L.ParamBuilder) -> PyTree:
+    spb = _Stacked(pb, cfg.reps)
+    params: Dict[str, PyTree] = {
+        "embed": L.build_embedding(pb, cfg.vocab, cfg.d_model),
+        "final_ln": pb.param((cfg.d_model,), ("embed",), init="ones",
+                             dtype=torch.float32),
+        "blocks": [_build_block(spb, cfg, mx, ff) for mx, ff in cfg.pattern()],
+    }
+    if cfg.family in ("vlm", "audio"):
+        params["frontend"] = {
+            "proj": pb.param((cfg.d_model, cfg.d_model), ("embed", "embed")),
+        }
+    if cfg.family == "audio":
+        epb = _Stacked(pb, cfg.enc_layers)
+        params["encoder"] = {
+            "blocks": [_build_block(epb, cfg, "attention", "mlp")],
+            "final_ln": pb.param((cfg.d_model,), ("embed",), init="ones",
+                                 dtype=torch.float32),
+        }
+        cpb = _Stacked(pb, cfg.reps)
+        params["cross"] = {
+            "ln": cpb.param((cfg.d_model,), ("embed",), init="ones",
+                            dtype=torch.float32),
+            "attn": L.build_attention(cpb, cfg.d_model, cfg.n_heads,
+                                      cfg.n_kv_heads, cfg.head_dim),
+        }
+    return params
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> PyTree:
+    """Random params drawn from ``generator``, on its device."""
+    return _build_params(cfg, L.ParamBuilder("init", generator))
+
+
+def abstract_params(cfg: ModelConfig) -> PyTree:
+    """Params as ``meta``-device tensors: shapes and dtypes, no storage."""
+    return _build_params(cfg, L.ParamBuilder("abstract"))
+
+
+def param_logical_axes(cfg: ModelConfig) -> PyTree:
+    return _build_params(cfg, L.ParamBuilder("axes"))
+
+
+# ---------------------------------------------------------------------------
+# Forward (training / prefill)
+# ---------------------------------------------------------------------------
+
+def _apply_mixer(kind: str, p: PyTree, x: torch.Tensor,
+                 positions: torch.Tensor, causal: bool) -> torch.Tensor:
+    if kind == "attention":
+        return L.attention_fwd(p, x, positions, causal=causal)
+    if kind == "mamba":
+        return M.mamba_fwd(p, x)
+    if kind == "rwkv6":
+        return R.rwkv6_fwd(p, x)
+    raise ValueError(kind)
+
+
+def _ffn(cfg: ModelConfig, ffn: str, p: PyTree, h: torch.Tensor,
+         capacity_factor: float):
+    """(y, aux) of a position's FFN."""
+    if ffn == "moe":
+        return MOE.moe_fwd(p, h, top_k=cfg.moe_top_k,
+                           capacity_factor=capacity_factor)
+    return L.mlp_fwd(p, h), 0.0
+
+
+def _block_body(cfg: ModelConfig, pattern, carry, block_params, positions,
+                causal=True):
+    x, aux = carry
+    for (mixer, ffn), p in zip(pattern, block_params):
+        h = L.rms_norm(x, p["ln1"])
+        x = x + _apply_mixer(mixer, p["mixer"], h, positions, causal)
+        h = L.rms_norm(x, p["ln2"])
+        y, a = _ffn(cfg, ffn, p["ffn"], h, cfg.capacity_factor)
+        aux = aux + a
+        x = x + y
+    return x, aux
+
+
+def _run_stack(cfg: ModelConfig, blocks: Sequence[PyTree], x: torch.Tensor,
+               positions: torch.Tensor, *, causal: bool = True,
+               pattern=None, cross: Optional[PyTree] = None,
+               enc_out: Optional[torch.Tensor] = None):
+    """Run the stacked super-blocks, rep by rep. Returns (x, aux_loss)."""
+    pattern = pattern or cfg.pattern()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    reps = leaves(blocks)[0].shape[0]
+    for r in range(reps):
+        x, aux = _block_body(cfg, pattern, (x, aux), _at(list(blocks), r),
+                             positions, causal)
+        if cross is not None:                         # whisper cross-attn
+            cp = _at(cross, r)
+            h = L.rms_norm(x, cp["ln"])
+            x = x + L.attention_fwd(cp["attn"], h, positions,
+                                    kv_override=enc_out)
+    return x, aux
+
+
+def _frontend(params: PyTree, extra: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The stub frontend's projection ``"bpd,de->bpe"``."""
+    return L.matmul(extra.to(dtype), params["frontend"]["proj"], dtype)
+
+
+def _encode(cfg: ModelConfig, params: PyTree, f: torch.Tensor
+            ) -> torch.Tensor:
+    """Whisper's bidirectional encoder over projected frames ``f``."""
+    fpos = torch.arange(f.shape[1], device=f.device)[None]
+    enc_out, _ = _run_stack(cfg, params["encoder"]["blocks"], f, fpos,
+                            causal=False, pattern=[("attention", "mlp")])
+    return L.rms_norm(enc_out, params["encoder"]["final_ln"])
+
+
+def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
+            extra_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward. tokens [B,S] -> (logits [B,S,V] fp32, aux_loss).
+
+    ``extra_embeds`` [B,P,d] (vlm patches / audio stub frames) are prepended
+    (vlm) or encoded + cross-attended (audio).
+    """
+    x = L.embed_fwd(params["embed"], tokens)
+    enc_out = None
+    n_prefix = 0
+    if cfg.family == "vlm":
+        assert extra_embeds is not None
+        img = _frontend(params, extra_embeds, x.dtype)
+        x = torch.cat([img, x], dim=1)
+        n_prefix = img.shape[1]
+    elif cfg.family == "audio":
+        assert extra_embeds is not None
+        enc_out = _encode(cfg, params,
+                          _frontend(params, extra_embeds, x.dtype))
+
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    x, aux = _run_stack(cfg, params["blocks"], x, positions,
+                        cross=params.get("cross"), enc_out=enc_out)
+    x = L.rms_norm(x, params["final_ln"])
+    if n_prefix:
+        x = x[:, n_prefix:]
+    return L.unembed_fwd(params["embed"], x), aux
+
+
+def loss_fn(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
+            labels: torch.Tensor, extra_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy + z-loss + MoE aux (a value; no gradient
+    is taken in the port yet)."""
+    logits, aux = forward(cfg, params, tokens, extra_embeds)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = torch.mean(lse - gold)
+    z_loss = 1e-4 * torch.mean(lse ** 2)
+    moe_loss = 1e-2 * aux / max(cfg.n_layers, 1)
+    total = ce + z_loss + moe_loss
+    return total, {"ce": ce, "z": z_loss, "moe": moe_loss}
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, params_or_abstract: PyTree, batch: int,
+               max_len: int, abstract: bool = False,
+               dtype: torch.dtype = torch.bfloat16, device=None) -> PyTree:
+    """Per-pattern-position stacked caches (tree mirrors params["blocks"]).
+
+    ``device`` follows the package rule (``None``: the GPU); ``abstract``
+    gives ``meta`` tensors.
+    """
+    dev = torch.device("meta") if abstract else resolve_device(device)
+
+    def mk(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    caches = []
+    for mixer, _ in cfg.pattern():
+        if mixer == "attention":
+            c = {"k": mk((cfg.reps, batch, max_len, cfg.n_kv_heads,
+                          cfg.head_dim), dtype),
+                 "v": mk((cfg.reps, batch, max_len, cfg.n_kv_heads,
+                          cfg.head_dim), dtype),
+                 "len": mk((cfg.reps, batch), torch.int32)}
+        elif mixer == "mamba":
+            d_inner = 2 * cfg.d_model
+            c = {"h": mk((cfg.reps, batch, d_inner, M.D_STATE),
+                         torch.float32),
+                 "conv": mk((cfg.reps, batch, M.D_CONV - 1, d_inner), dtype)}
+        else:  # rwkv6
+            H = cfg.d_model // R.HEAD_DIM
+            c = {"shift": mk((cfg.reps, batch, 1, cfg.d_model), dtype),
+                 "wkv": mk((cfg.reps, batch, H, R.HEAD_DIM, R.HEAD_DIM),
+                           torch.float32)}
+        caches.append(c)
+    out = {"blocks": caches, "pos": mk((batch,), torch.int32)}
+    if cfg.family == "audio":
+        out["enc_out"] = mk((batch, cfg.n_extra_embeds, cfg.d_model), dtype)
+    return out
+
+
+def _empty_like_blocks(blocks: List[PyTree]) -> List[PyTree]:
+    return [{k: torch.empty_like(v) for k, v in c.items()} for c in blocks]
+
+
+def _rotary_qk(cfg: ModelConfig, p: PyTree, h: torch.Tensor,
+               positions: torch.Tensor):
+    """Head projections with rotary at ``rope_theta``."""
+    q, k, v = L.qkv(p, h)
+    cos, sin = L.rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
+    return L.apply_rotary(q, cos, sin), L.apply_rotary(k, cos, sin), v
+
+
+def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, PyTree]:
+    """One-token decode. tokens [B,1] -> (logits [B,V] fp32, new cache).
+
+    The input cache is left as it is; the new one is written into fresh
+    tensors of the same shapes.
+    """
+    x = L.embed_fwd(params["embed"], tokens)
+    position = cache["pos"]
+    enc_out = cache.get("enc_out")
+    pattern = cfg.pattern()
+    new_blocks = _empty_like_blocks(cache["blocks"])
+    for r in range(cfg.reps):
+        for idx, (mixer, ffn) in enumerate(pattern):
+            p = _at(params["blocks"][idx], r)
+            cc = _at(cache["blocks"][idx], r)
+            nc = _at(new_blocks[idx], r)
+            h = L.rms_norm(x, p["ln1"])
+            if mixer == "attention":
+                q, k, v = _rotary_qk(cfg, p["mixer"], h, position[:, None])
+                L.cache_write(cc["k"], k, cc["len"], out=nc["k"])
+                L.cache_write(cc["v"], v, cc["len"], out=nc["v"])
+                torch.add(cc["len"], 1, out=nc["len"])
+                o = L.decode_attention(q, nc["k"], nc["v"], nc["len"])
+                mx = L.contract(o, p["mixer"]["wo"], 2, h.dtype)
+            else:
+                step = M.mamba_decode if mixer == "mamba" else R.rwkv6_decode
+                mx, out = step(p["mixer"], h, cc)
+                for key, t in out.items():
+                    nc[key].copy_(t)
+            x = x + mx
+            h = L.rms_norm(x, p["ln2"])
+            y, _ = _ffn(cfg, ffn, p["ffn"], h, 8.0)
+            x = x + y
+        if cfg.family == "audio":
+            cp = _at(params["cross"], r)
+            h = L.rms_norm(x, cp["ln"])
+            x = x + L.attention_fwd(cp["attn"], h, position[:, None],
+                                    kv_override=enc_out)
+
+    x = L.rms_norm(x, params["final_ln"])
+    logits = L.unembed_fwd(params["embed"], x)[:, 0]
+    new_cache = dict(cache)
+    new_cache["blocks"] = new_blocks
+    new_cache["pos"] = cache["pos"] + 1
+    return logits, new_cache
+
+
+def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
+            max_len: int, extra_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, PyTree]:
+    """Process a prompt, build the decode cache, return last-token logits.
+
+    Attention K/V for the prompt are recomputed per layer and written into
+    the cache (padded to ``max_len``); SSM/RWKV states come from the scan.
+    """
+    B = tokens.shape[0]
+    x = L.embed_fwd(params["embed"], tokens)
+    enc_out = None
+    if cfg.family == "vlm":
+        x = torch.cat([_frontend(params, extra_embeds, x.dtype), x], dim=1)
+    elif cfg.family == "audio":
+        enc_out = _encode(cfg, params,
+                          _frontend(params, extra_embeds, x.dtype))
+
+    St = x.shape[1]
+    if St > max_len:
+        raise ValueError(f"prompt of {St} positions exceeds max_len "
+                         f"{max_len}")
+    positions = torch.arange(St, device=x.device)[None]
+    pattern = cfg.pattern()
+    cache = init_cache(cfg, params, B, max_len, dtype=x.dtype,
+                       device=x.device)
+    for r in range(cfg.reps):
+        for idx, (mixer, ffn) in enumerate(pattern):
+            p = _at(params["blocks"][idx], r)
+            nc = _at(cache["blocks"][idx], r)
+            h = L.rms_norm(x, p["ln1"])
+            if mixer == "attention":
+                q, k, v = _rotary_qk(cfg, p["mixer"], h, positions)
+                o = L.flash_attention(q, k, v, causal=True)
+                mx = L.contract(o, p["mixer"]["wo"], 2, h.dtype)
+                nc["k"][:, :St] = k
+                nc["v"][:, :St] = v
+                nc["len"].fill_(St)
+            else:
+                fill = _mamba_prefill if mixer == "mamba" else _rwkv_prefill
+                mx, out = fill(p["mixer"], h)
+                for key, t in out.items():
+                    nc[key].copy_(t)
+            x = x + mx
+            h = L.rms_norm(x, p["ln2"])
+            y, _ = _ffn(cfg, ffn, p["ffn"], h, cfg.capacity_factor)
+            x = x + y
+        if cfg.family == "audio":
+            cp = _at(params["cross"], r)
+            h = L.rms_norm(x, cp["ln"])
+            x = x + L.attention_fwd(cp["attn"], h, positions,
+                                    kv_override=enc_out)
+
+    x = L.rms_norm(x, params["final_ln"])
+    logits = L.unembed_fwd(params["embed"], x[:, -1:])[:, 0]
+    cache["pos"].fill_(St)
+    if enc_out is not None:
+        cache["enc_out"] = enc_out
+    return logits, cache
+
+
+def _mamba_prefill(p, x):
+    """mamba_fwd and the terminal state for the cache: the state from the
+    same recurrence, and the conv tail from the input before the conv."""
+    y, hT, u = M._mamba(p, x)
+    return y, {"h": hT, "conv": u[:, -(M.D_CONV - 1):, :]}
+
+
+def _rwkv_prefill(p, x):
+    """rwkv6_fwd and the final wkv state and token shift for the cache."""
+    y, ST = R._rwkv6(p, x)
+    return y, {"shift": x[:, -1:, :], "wkv": ST}

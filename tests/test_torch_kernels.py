@@ -188,6 +188,8 @@ def test_import_leaves_jax_unloaded():
             "import repro_torch.core.validated, repro_torch.core.versioned\n"
             "import repro_torch.kernels.validated_traverse\n"
             "import repro_torch.core.sharded\n"
+            "import repro_torch.configs, repro_torch.models.transformer\n"
+            "import repro_torch.serving.engine, repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']\n"
             "assert not bad, bad\n")
