@@ -174,37 +174,77 @@ Phases, one JSON line each:
    logits,
    MoE conservation and the dispatch's integers card against CPU on layer
    0's router, rwkv6's decode against its forward (by depth, as above);
-15. the script's wall seconds, then the ``kernels`` line: every ported
+15. ``train_smoke_check``, the training path (``train.step``,
+   ``optim.adamw``, ``checkpoint``, ``launch.train``) on the card against
+   the CPU: each of the ten smoke configs, params drawn on the CPU and
+   carried across, TF32 off, its loss and every gradient (remat "dots" on
+   the card, through the autograd bf16 product) within 1e-3 in fp32 (or
+   3x the CPU's own response to a one-ulp nudge) and 0.05 in bf16 (0.1
+   for the MoE archs, whose bf16 combine's order varies on the card);
+   ``launch.train`` at smoke size (25 steps, a checkpoint every 10) and
+   again with a failure injected at step 15: the replay after the
+   restore gives the uninterrupted run's losses bit for bit, under
+   ``torch.use_deterministic_algorithms``; a train state's checkpoint
+   round trip on the card, bit for bit;
+16. ``train_full_width``: llama3_8b's widths (d_model 4096, GQA 32/8,
+   d_ff 14336, vocab 128256, theta 5e5, remat "dots") at 8 of its 32
+   layers (the 32-layer train state does not fit the card), 2.27e9 bf16
+   params drawn on the card, the attention weights rescaled to their
+   contraction's fan-in (the reference's init saturates attention at this
+   width: ``chip_probe_train.py`` reports it); ``make_train_step`` with
+   ``adamw.config_for`` on 6 batches of 8 x 1024 tokens that a
+   ``DataPipeline`` draws from a ``use_kernel`` store (K1 and its pass),
+   then one more under ``torch.profiler``; block 0's and the first two
+   layers' gradients through the bf16 product against fp32
+   recomputations; 8 steps on one repeated batch (lr 3e-4, warmup 2)
+   whose loss must fall; step ms, tokens/s, FLOPs from the shapes (causal
+   attention counted as S(S+1)/2 positions, the masked half the port
+   computes reported apart) and their share of the bf16 peak and of the
+   bound, peak memory and the profile by kernel kind;
+17. the script's wall seconds, then the ``kernels`` line: every ported
    kernel with its main-path launches (K5/K6's include those K10, the
-   store and the page table made; K1-K4's those of the store), the fat
+   store and the page table made; K1-K4's those of the store, K1's also
+   those of the full-width training path), the fat
    launches of K1-K6 as rows of their own, ``fat_resolve``,
    ``search_kernel_mesh`` (K10), ``group_by_shard`` (its launches on the
    four sharded main paths and the store's dense lookups) and
-   ``group_by_key`` (its launches on the K1, K2, K8, fat K1/K2 and
-   monolithic store main paths).
+   ``group_by_key`` (its launches on the K1, K2, K8, fat K1/K2,
+   monolithic store and training main paths).
 
 Then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check, build or launch raises, and the script exits non-zero.
+``CUBLAS_WORKSPACE_CONFIG`` is set for the whole process, so every phase's
+cuBLAS calls run with that workspace.
 """
 from __future__ import annotations
 
-import dataclasses
-import json
 import os
-import statistics
-import subprocess
-import sys
-import time
-from pathlib import Path
-from types import SimpleNamespace
 
-import numpy as np
-import torch
-import torch.distributed as dist
+# the restart checks run under torch.use_deterministic_algorithms, which
+# needs this set before the first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
+import io  # noqa: E402
+import json  # noqa: E402
+import statistics  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+import time  # noqa: E402
+from pathlib import Path  # noqa: E402
+from types import SimpleNamespace  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import configs as cfgs  # noqa: E402
-from repro_torch.convert import flat_items, mesh_to_numpy  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.convert import (flat_items, mesh_to_numpy,  # noqa: E402
+                                 train_state_to_numpy)
 from repro_torch.core import mesh_index as mi  # noqa: E402
 from repro_torch.core import rebalance_traced as rbt  # noqa: E402
 from repro_torch.core import sharded as shd  # noqa: E402
@@ -220,10 +260,13 @@ from repro_torch.kernels import mesh_launch as ml  # noqa: E402
 from repro_torch.kernels import shard_group as sg  # noqa: E402
 from repro_torch.kernels import validated_traverse as vt  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.launch.mesh import make_index_mesh  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, make_index_mesh  # noqa: E402,E501
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import moe as TMOE  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel.sharding import policy_for  # noqa: E402
 from repro_torch.runtime.chaos import (CAPACITY_FAIL,  # noqa: E402
                                        POOL_EXHAUSTED, FaultInjector,
                                        FaultSchedule)
@@ -231,6 +274,7 @@ from repro_torch.serving.engine import EngineConfig  # noqa: E402
 from repro_torch.serving.kvcache import (PagedCacheConfig,  # noqa: E402
                                          PageTable, page_key)
 from repro_torch.serving.watchdog import InvariantWatchdog  # noqa: E402
+from repro_torch.train import step as STEP  # noqa: E402
 
 SEED = 0
 # benchmarks/fig4_batch_sweep.py:3-4 (2^25 elements), benchmarks/common.py
@@ -3164,6 +3208,435 @@ def full_width_other(arch: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The training path: gradients, AdamW, checkpoints, the step factory,
+# launch.train
+# ---------------------------------------------------------------------------
+
+# The smoke check: each smoke config's loss and gradients on the card (at
+# remat "dots": the selective checkpoint around the autograd product)
+# against the CPU's (remat "none"), params drawn on the CPU; fractions of
+# each leaf's max abs.  fp32: FP32_TOL, or 3x the CPU's own response to a
+# one-ulp nudge of half of every leaf where that is larger (as in
+# tests/test_torch_models.py: whisper_tiny's fp32 gradients move by 4e-3
+# of max abs under such a nudge; the card's gap 3.1e-3, the other nine
+# archs' at most 1.4e-4).  bf16: the card's products round the cotangent
+# to bf16 (layers._F32Product), the CPU's run on fp32 copies; measured
+# 0.012-0.025 over the ten archs (H100 80GB HBM3, 700 W), bound 0.05; the
+# MoE archs 0.1: their combine adds into bf16 through index_add_, whose
+# order changes from run to run on the card (granite_moe_1b read 0.020,
+# 0.022 and 0.038 in three runs).
+TRAIN_B, TRAIN_S = 2, 16
+TRAIN_TOL = {"float32": 1e-3, "bfloat16": 0.05}
+TRAIN_MOE_BF16_TOL = 0.1
+OWN_FACTOR = 3
+# launch.train at smoke size: the uninterrupted run against one with an
+# injected failure (tests/test_system.py's driver case)
+TRAIN_DRIVER_ARGS = ["--smoke", "--steps", "25", "--global-batch", "4",
+                     "--seq-len", "32", "--ckpt-every", "10",
+                     "--log-every", "10"]
+TRAIN_FAIL_AT = 15
+# The full-width training cell: llama3_8b's CONFIG widths (d_model 4096,
+# GQA 32/8, d_ff 14336, vocab 128256, rope theta 5e5, remat "dots") at 8
+# of its 32 layers: the 32-layer train state (7.50e9 params x 12 B: bf16
+# params and grads, fp32 mu and nu) is 90 GB, past the card's 80 GB; at 8
+# layers it is 2.27e9 params, 27.2 GB.  Global batch 8 x 1024 tokens from
+# a DataPipeline over a use_kernel store (K1 and its grouping pass).
+FULL_TRAIN_DEPTH = 8
+FULL_TRAIN_BATCH, FULL_TRAIN_SEQ, FULL_TRAIN_SAMPLES = 8, 1024, 4096
+FULL_TRAIN_STEPS, FULL_TRAIN_REPEAT = 6, 8
+FULL_TRAIN_LR, FULL_TRAIN_WARMUP = 3e-4, 2
+# Set from a run on an H100 80GB HBM3 at 700 W: the repeated batch's loss
+# fell by 4.35 (11.715 -> 7.365); block 0's bf16 gradients sat within
+# 0.0128 of fp32 (fraction of max abs), the first 2 layers' with the head
+# 0.0126.
+FULL_TRAIN_DROP = 1.0          # the last loss below the first by this
+FULL_BLOCK_TOL = 0.05          # bf16 gradients against fp32 recomputed
+FULL_HEAD_SEQ = 256            # tokens of the 2-layer gradient check
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 peak (700 W)
+
+
+def nudged(params, seed: int):
+    """``params`` with half the elements of every leaf one step up (their
+    bit pattern plus one)."""
+    gen = torch.Generator().manual_seed(seed)
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+    def nudge(t):
+        half = torch.rand(t.shape, generator=gen) < 0.5
+        return torch.where(half, (t.view(ints[t.dtype]) + 1).view(t.dtype), t)
+    return adamw.tree_map(nudge, params)
+
+
+def smoke_loss_grads(cfg, params, toks, extra) -> tuple:
+    """``loss_fn``'s value and gradient leaves, labels the tokens shifted."""
+    loss, _, grads = STEP.loss_and_grads(cfg, params, {
+        "tokens": toks, "labels": torch.roll(toks, -1, 1), "extra": extra})
+    return loss, TT.leaves(grads)
+
+
+def leaf_gaps(got, want) -> list:
+    """max |got - want| / max |want| a leaf, on the CPU in fp32."""
+    out = []
+    for g, w in zip(got, want):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              "finite gradients of the expected shape")
+        out.append(float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                    1e-30))
+    return out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms(True) inside the block: the
+    embedding gather's backward and index_add_ accumulate without
+    atomics' order; an op with no deterministic CUDA version raises."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def train_driver(extra_args) -> tuple:
+    """``launch.train.run`` on the card: (history, its stdout)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        hist = launch_train.run(launch_train.parse_args(
+            TRAIN_DRIVER_ARGS + ["--device", DEVICE] + extra_args))
+    return hist, out.getvalue()
+
+
+def train_smoke_check() -> dict:
+    """The ten smoke configs' gradients card against CPU; launch.train
+    with an injected failure, replayed bit for bit; a checkpoint round
+    trip on the card."""
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is off for fp32 products")
+    archs, failed = {}, []
+    for arch in cfgs.ARCH_IDS:
+        cfg = cfgs.get_smoke(arch)
+        row = {}
+        for dtype in ("float32", "bfloat16"):
+            params = smoke_params(cfg, dtype)
+            gen = torch.Generator().manual_seed(SEED)
+            toks = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S),
+                                 generator=gen, dtype=torch.int32)
+            extra = None
+            if cfg.family in ("vlm", "audio"):
+                extra = torch.randn((TRAIN_B, cfg.n_extra_embeds,
+                                     cfg.d_model), generator=gen).to(
+                                         getattr(torch, dtype))
+            cpu_cfg = dataclasses.replace(cfg, remat="none")
+            closs, cgrads = smoke_loss_grads(cpu_cfg, params, toks, extra)
+            own = max(leaf_gaps(smoke_loss_grads(
+                cpu_cfg, nudged(params, SEED + 7), toks, extra)[1], cgrads))
+            gloss, ggrads = smoke_loss_grads(
+                dataclasses.replace(cfg, remat="dots"),
+                to_device(params, DEVICE), toks.to(DEVICE),
+                to_device(extra, DEVICE))
+            gaps = leaf_gaps(ggrads, cgrads)
+            loss_gap = abs(float(gloss) - float(closs)) / abs(float(closs))
+            tol = TRAIN_TOL[dtype]
+            if dtype == "float32":
+                tol = max(tol, OWN_FACTOR * own)
+            elif cfg.moe_experts:
+                tol = TRAIN_MOE_BF16_TOL
+            keys = [k for k, _ in flat_items(params)]
+            row[dtype] = {"max_gap": max(gaps), "loss_gap": loss_gap,
+                          "cpu_own_response": own, "tol": tol,
+                          "worst_leaf": keys[int(np.argmax(gaps))]}
+            if max(gaps + [loss_gap]) > tol:
+                failed.append(f"{arch} {dtype}: card gradients within "
+                              f"{tol:.3e} of the CPU ({max(gaps):.3e})")
+        archs[arch] = row
+
+    # launch.train: the uninterrupted run, and one with a failure injected
+    # at step 15 and restored from step 10's checkpoint; deterministic
+    with tempfile.TemporaryDirectory() as d, deterministic():
+        t0 = time.perf_counter()
+        plain, _ = train_driver(["--ckpt-dir", os.path.join(d, "a")])
+        hist, text = train_driver(["--ckpt-dir", os.path.join(d, "b"),
+                                   "--fail-at", str(TRAIN_FAIL_AT)])
+        driver_s = time.perf_counter() - t0
+        check("injected failure" in text and "done: 25 steps" in text,
+              "launch.train survives the injected failure and finishes")
+        check([s for s, _ in hist] == list(range(TRAIN_FAIL_AT + 1)) +
+              list(range(10, 25)), "launch.train replays steps 10-24")
+        plain = dict(plain)
+        check(all(loss == plain[s] for s, loss in hist),
+              "launch.train: the replay's losses equal the uninterrupted "
+              "run's, bit for bit")
+        # a checkpoint round trip of a train state on the card
+        cfg = cfgs.get_smoke("llama3_8b")
+        opt_cfg = adamw.config_for(cfg.name)
+        params = TT.init_params(cfg, torch.Generator(device=DEVICE)
+                                .manual_seed(SEED))
+        fn, _, (p_abs, o_abs) = STEP.make_train_step(
+            cfg, policy_for(cfg.name), make_host_mesh(DEVICE), 2, opt_cfg)
+        toks = torch.randint(0, cfg.vocab, (2, 17), device=DEVICE,
+                             dtype=torch.int32)
+        params, opt, _ = fn(params, adamw.init(opt_cfg, params),
+                            {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        state = {"params": params, "opt": opt}
+        mgr = CheckpointManager(os.path.join(d, "c"))
+        mgr.save(1, state)
+        back = mgr.restore(1, {"params": p_abs, "opt": o_abs}, DEVICE)
+        want, got = train_state_to_numpy(state), train_state_to_numpy(back)
+        on_card = [t.device.type == torch.device(DEVICE).type
+                   for t in adamw.tree_leaves([back["params"],
+                                               list(back["opt"])])]
+        check(want.keys() == got.keys() and all(
+            np.array_equal(want[k], got[k]) and want[k].dtype == got[k].dtype
+            for k in want) and all(on_card),
+            "checkpoint round trip on the card, bit for bit")
+    report = {"phase": "train_smoke_check", "archs": archs,
+              "failed": failed,
+              "driver": {"steps_run": len(hist), "replayed": len(hist) - 25,
+                         "final_loss": hist[-1][1], "seconds": driver_s},
+              "checkpoint_leaves": len(want),
+              "seconds": time.perf_counter() - t_phase}
+    emit(report)
+    check(not failed, "; ".join(failed))
+    return report
+
+
+def train_step_flops(cfg, B: int, S: int) -> dict:
+    """Operations of one train step from the shapes: the weight GEMMs
+    forward and backward (x3), attention's two products over the causal
+    S(S+1)/2 positions forward, recomputed under remat "dots" and backward
+    (x4), and the tied head (x3).  The port computes every chunk pair of
+    the S x S square; its masked half is reported apart, as waste."""
+    T, d, hd = B * S, cfg.d_model, cfg.head_dim
+    H, Hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    layer = 2 * T * d * (2 * H * hd + 2 * Hkv * hd) + 2 * T * d * f * 3
+    head = 2 * T * d * cfg.vocab
+    gemm = (3 * layer) * cfg.n_layers + 3 * head
+    attn_all = 4 * 2 * 2 * B * H * (S * (S + 1) // 2) * hd * cfg.n_layers
+    square = 4 * 2 * 2 * B * H * S * S * hd * cfg.n_layers
+    return {"gemm_flops": gemm, "attention_fp32_flops": attn_all,
+            "attention_masked_fp32_flops": square - attn_all,
+            "flops": gemm + attn_all,
+            "bound_ms": (gemm / BF16_FLOPS_PER_S
+                         + attn_all / SCALAR_OPS_PER_S) * 1e3}
+
+
+def kernel_classes(prof) -> dict:
+    """Device ms of a profiled window by kind of kernel."""
+    from torch.autograd import DeviceType
+    out = {"gemm": 0.0, "elementwise": 0.0, "copy": 0.0, "reduce": 0.0,
+           "other": 0.0}
+    n = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
+            continue
+        k, ms = e.key.lower(), e.device_time_total / 1e3
+        n += e.count
+        if any(w in k for w in ("gemm", "nvjet", "xmma", "cutlass",
+                                "cublas", "sm90_")):
+            out["gemm"] += ms
+        elif any(w in k for w in ("memcpy", "memset", "copy")):
+            out["copy"] += ms
+        elif "elementwise" in k:
+            out["elementwise"] += ms
+        elif "reduce" in k:
+            out["reduce"] += ms
+        else:
+            out["other"] += ms
+    out["device_ms"] = sum(out.values())
+    out["launches"] = n
+    return out
+
+
+def block_grad_gap(cfg, params, toks) -> dict:
+    """Block 0's gradients through the bf16 product (``_F32Product``, the
+    cotangent rounded to bf16) against an fp32 recomputation on fp32
+    copies of the same params and input (TF32 off): the gap a leaf."""
+    S = toks.shape[1]
+    blk = [TT._at(b, 0) for b in params["blocks"]]
+    x16 = TL.embed_fwd(params["embed"], toks).detach()
+    pos = torch.arange(S, device=toks.device)[None]
+    r = torch.randn(x16.shape, generator=torch.Generator(
+        device=DEVICE).manual_seed(SEED + 11), device=DEVICE)
+    grads = {}
+    for name, conv in (("bf16", lambda t: t), ("fp32", lambda t: t.float())):
+        leaves = [conv(t).detach().requires_grad_(True)
+                  for t in TT.leaves(blk)]
+        it = iter(leaves)
+        tree = adamw.tree_map(lambda _: next(it), blk)
+        x = conv(x16).requires_grad_(True)
+        y, _ = TT._block_body(cfg, cfg.pattern(), (x, torch.zeros(
+            (), device=DEVICE)), tree, pos)
+        grads[name] = torch.autograd.grad((y.float() * r).sum(),
+                                          leaves + [x])
+    gaps = leaf_gaps(grads["bf16"], grads["fp32"])
+    keys = [k for k, _ in flat_items(blk)] + ["x"]
+    return {"tokens": int(toks.numel()), "max_gap": max(gaps),
+            "gaps": dict(zip(keys, gaps))}
+
+
+def model_grad_gap(cfg, params, toks) -> dict:
+    """The first 2 layers' loss and gradients, with the tied head, through
+    the card's bf16 products (remat "dots") against fp32 copies of the same
+    params (remat "none"): the gap a leaf."""
+    c2, p2 = layers_of(cfg, params, 2)
+    l16, g16 = smoke_loss_grads(c2, p2, toks, None)
+    p32 = adamw.tree_map(lambda t: t.float(), p2)
+    l32, g32 = smoke_loss_grads(dataclasses.replace(c2, remat="none"), p32,
+                                toks, None)
+    gaps = leaf_gaps(g16, g32)
+    keys = [k for k, _ in flat_items(p2)]
+    del p32, g32, g16
+    return {"tokens": int(toks.numel()), "loss_bf16": float(l16),
+            "loss_fp32": float(l32), "max_gap": max(gaps),
+            "gaps": dict(zip(keys, gaps))}
+
+
+def contraction_fan_in(cfg, params) -> dict:
+    """Rescale the attention weights, in place, from the reference's
+    random init (``ParamBuilder`` takes ``fan_in = shape[-2]``: heads for
+    ``wq`` / ``wk`` / ``wv`` [d, H, hd], head_dim for ``wo`` [H, hd, d])
+    to the fan-in of their contraction (d_model; H * hd).  At llama3_8b's
+    width the reference's rule gives q and k entries of std 11 and 23 and
+    attention scores of std ~255: a saturated softmax, whose gradients
+    the bf16 and fp32 products disagree on entirely.  Returns the
+    factors."""
+    d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    factors = {"wq": (H / d) ** 0.5, "wk": (Hkv / d) ** 0.5,
+               "wv": (Hkv / d) ** 0.5, "wo": H ** -0.5}
+    for (mixer, _), blk in zip(cfg.pattern(), params["blocks"]):
+        if mixer == "attention":
+            for k, f in factors.items():
+                blk["mixer"][k].mul_(f)
+    return factors
+
+
+def train_full_width() -> dict:
+    """llama3_8b's width at 8 layers trained through make_train_step on
+    the pipeline's batches, then on one repeated batch."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(cfgs.get_config(FULL_ARCH),
+                              n_layers=FULL_TRAIN_DEPTH)
+    check(cfg.remat == "dots", "llama3_8b trains at remat 'dots'")
+    B, S = FULL_TRAIN_BATCH, FULL_TRAIN_SEQ
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = TT.init_params(cfg, gen)
+    rows = torch.randint(0, cfg.vocab, (FULL_TRAIN_SAMPLES, S + 1),
+                         generator=gen, device=DEVICE, dtype=torch.int32)
+    store = IndexedSampleStore(StoreConfig(
+        n_samples=FULL_TRAIN_SAMPLES, seq_len=S, vocab=cfg.vocab,
+        use_kernel=True), rows=rows, device=DEVICE)
+    pipe = DataPipeline(store, PipelineConfig(global_batch=B))
+    opt_cfg = adamw.config_for(FULL_ARCH, total_steps=1000)
+    fn, _, _ = STEP.make_train_step(cfg, policy_for(FULL_ARCH),
+                                    make_host_mesh(DEVICE), B, opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in TT.leaves(params))
+    rescale = contraction_fan_in(cfg, params)
+    opt = adamw.init(opt_cfg, params)
+
+    # the main path: six steps on the pipeline's batches
+    reset_launches()
+    steps = []
+    for step in range(FULL_TRAIN_STEPS):
+        batch = pipe.get_batch(step)
+        check(bool(batch["found"].all()), "full-width batch: every key found")
+        t0 = time.perf_counter()
+        params, opt, m = fn(params, opt, {"tokens": batch["tokens"],
+                                          "labels": batch["labels"]})
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "lr": float(m["lr"])})
+    launches = read_launches()
+    check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+              for s in steps), "full width: every loss and grad_norm finite")
+    path = launches_on(launches, ("foresight_traverse", "group_by_key"))
+    for name, n in path.items():
+        check(n > 0, f"{name} launched on the full-width training path")
+    step_ms = statistics.median(s["ms"] for s in steps[1:])
+    flops = train_step_flops(cfg, B, S)
+
+    # where a step's time goes: one more pipeline step under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    batch = pipe.get_batch(FULL_TRAIN_STEPS)
+    batch = {"tokens": batch["tokens"], "labels": batch["labels"]}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = fn(params, opt, batch)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    profile_row = kernel_classes(prof)
+    profile_row["profiled_step_wall_ms"] = prof_ms
+    profile_row["busy_share"] = profile_row["device_ms"] / step_ms
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # the gradients at full width, through the card's bf16 products,
+    # against fp32 recomputations: block 0 alone, and the first 2 layers
+    # with the head
+    del m
+    failed = []
+    block = block_grad_gap(cfg, params, batch["tokens"][:1])
+    if block["max_gap"] > FULL_BLOCK_TOL:
+        failed.append(f"block 0's bf16 gradients within {FULL_BLOCK_TOL} of "
+                      f"fp32 ({block['max_gap']:.3e})")
+    head = model_grad_gap(cfg, params, batch["tokens"][:1, :FULL_HEAD_SEQ])
+    if head["max_gap"] > FULL_BLOCK_TOL:
+        failed.append(f"2 layers' bf16 gradients within {FULL_BLOCK_TOL} of "
+                      f"fp32 ({head['max_gap']:.3e})")
+
+    # eight steps on one batch, a fresh AdamW state at lr 3e-4 after 2
+    # warmup steps: the loss must fall
+    del opt
+    torch.cuda.empty_cache()
+    rep_cfg = dataclasses.replace(opt_cfg, lr_peak=FULL_TRAIN_LR,
+                                  warmup_steps=FULL_TRAIN_WARMUP)
+    fn_rep, _, _ = STEP.make_train_step(cfg, policy_for(FULL_ARCH),
+                                        make_host_mesh(DEVICE), B, rep_cfg)
+    opt = adamw.init(rep_cfg, params)
+    repeat, repeat_norms = [], []
+    for _ in range(FULL_TRAIN_REPEAT):
+        params, opt, m = fn_rep(params, opt, batch)
+        repeat.append(float(m["loss"]))
+        repeat_norms.append(float(m["grad_norm"]))
+    if not (np.isfinite(repeat).all() and
+            repeat[-1] <= repeat[0] - FULL_TRAIN_DROP):
+        failed.append(f"the repeated batch's loss falls by {FULL_TRAIN_DROP} "
+                      f"({repeat[0]:.4f} -> {repeat[-1]:.4f})")
+    del opt, m
+    torch.cuda.empty_cache()
+    report = {
+        "phase": "train_full_width", "arch": FULL_ARCH,
+        "config": dataclasses.asdict(cfg), "depth_cut": f"{FULL_TRAIN_DEPTH}"
+        " of 32 layers", "params": n_params, "init_s": init_s,
+        "attention_rescaled_by": rescale,
+        "global_batch": B, "seq_len": S, "steps": steps,
+        "step_ms": step_ms, "tokens_per_s": B * S / step_ms * 1e3,
+        **flops, "flops_share_of_bf16_peak":
+            flops["flops"] / (step_ms * 1e-3) / BF16_FLOPS_PER_S,
+        "bound_share": flops["bound_ms"] / step_ms,
+        "profile": profile_row, "peak_gib": peak_gib,
+        "repeated_batch_losses": repeat,
+        "repeated_batch_grad_norms": repeat_norms,
+        "repeated_batch_drop": repeat[0] - repeat[-1],
+        "block0_bf16_vs_fp32": block, "two_layers_bf16_vs_fp32": head,
+        "failed": failed,
+        "launches": path, "seconds": time.perf_counter() - t_phase}
+    del params, store, rows, pipe
+    torch.cuda.empty_cache()
+    emit(report)
+    check(not failed, "full width: " + "; ".join(failed))
+    return report
+
+
 def zipf_queries(keys: np.ndarray, batch: int, a: float = ZIPF_A,
                  seed: int = 1) -> np.ndarray:
     """benchmarks/common.py:55-60: Zipf(a) over the key population by rank."""
@@ -3318,6 +3791,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     model_smoke_check()
     serve_full_width()
+    # The training path: its store (use_kernel) launches K1 and its pass
+    train_smoke_check()
+    for name, n in train_full_width()["launches"].items():
+        by_name[name]["launches"] += n
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(smi)

@@ -16,9 +16,14 @@ one device's slice of a mesh index, under ``local.shards.<field>``,
 (nested dicts and lists, as both packages build it) through flat keys such
 as ``"blocks.0.mixer.wq"``, with shapes and dtypes kept;
 ``cache_from_numpy`` / ``cache_to_numpy`` do the same for ``init_cache``'s
-tree.  numpy has no bfloat16 of its own: a bf16 leaf crosses as its
-``uint16`` bit pattern (an ``ml_dtypes.bfloat16`` array is taken as its
-bits too), so that the weights cross bit for bit.
+tree.  ``opt_state_to_numpy`` / ``opt_state_from_numpy`` carry an AdamW
+state (either package's: anything with ``mu``, ``nu`` and ``count``)
+under ``mu.<param key>``, ``nu.<param key>`` and ``count``, and
+``train_state_to_numpy`` / ``train_state_from_numpy`` a train state
+``{"params", "opt"}`` under ``params.`` and ``opt.``.  numpy has no
+bfloat16 of its own: a bf16 leaf crosses as its ``uint16`` bit pattern
+(an ``ml_dtypes.bfloat16`` array is taken as its bits too), so that the
+weights cross bit for bit.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 from repro_torch.core.mesh_index import MeshShardedIndex
 from repro_torch.core.sharded import ShardedSkipList
 from repro_torch.core.skiplist import SkipListState, resolve_device
+from repro_torch.optim.adamw import AdamWState
 
 
 def _state(arrays: Dict[str, np.ndarray], dev: torch.device
@@ -164,7 +170,15 @@ def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
 
-def _array(t: torch.Tensor, bf16: Optional[np.dtype]) -> np.ndarray:
+def _array(t: Any, bf16: Optional[np.dtype]) -> np.ndarray:
+    """A leaf (a tensor, or an array of the reference's) as a host array;
+    bf16 as its ``uint16`` bits, or viewed as ``bf16`` when given."""
+    if not isinstance(t, torch.Tensor):
+        a = np.array(t, copy=True)
+        if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
+            bits = a.view(np.uint16)
+            return bits if bf16 is None else bits.view(bf16)
+        return a
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         bits = t.view(torch.int16).numpy().view(np.uint16)
@@ -189,7 +203,8 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device=None) -> Any:
 
 def params_to_numpy(params: Any, bf16: Optional[np.dtype] = None
                     ) -> Dict[str, np.ndarray]:
-    """``{"a.0.b": array}`` of a tree of tensors, copied to host.  A bf16
+    """``{"a.0.b": array}`` of a tree of tensors (or of the reference's
+    arrays), copied to host.  A bf16
     leaf comes out as its ``uint16`` bits, or viewed as ``bf16`` (e.g.
     ``ml_dtypes.bfloat16``) when given."""
     return {k: _array(t, bf16) for k, t in flat_items(params)}
@@ -199,3 +214,51 @@ def params_to_numpy(params: Any, bf16: Optional[np.dtype] = None
 # same kind of tree.
 cache_from_numpy = params_from_numpy
 cache_to_numpy = params_to_numpy
+
+
+# ---------------------------------------------------------------------------
+# Optimizer and train states
+# ---------------------------------------------------------------------------
+
+def _prefixed(flat: Dict[str, np.ndarray], prefix: str
+              ) -> Dict[str, np.ndarray]:
+    return {k[len(prefix):]: v for k, v in flat.items()
+            if k.startswith(prefix)}
+
+
+def opt_state_to_numpy(state: Any, bf16: Optional[np.dtype] = None
+                       ) -> Dict[str, np.ndarray]:
+    """``{"mu.<key>", "nu.<key>", "count"}`` of an AdamW state (a bf16
+    moment as ``params_to_numpy`` gives it), copied to host."""
+    out = {f"mu.{k}": v for k, v in params_to_numpy(state.mu, bf16).items()}
+    out.update({f"nu.{k}": v
+                for k, v in params_to_numpy(state.nu, bf16).items()})
+    out["count"] = _array(state.count, bf16)
+    return out
+
+
+def opt_state_from_numpy(flat: Dict[str, np.ndarray], device=None
+                         ) -> AdamWState:
+    """An ``optim.adamw.AdamWState`` from ``opt_state_to_numpy``'s keys."""
+    dev = resolve_device(device)
+    return AdamWState(mu=params_from_numpy(_prefixed(flat, "mu."), dev),
+                      nu=params_from_numpy(_prefixed(flat, "nu."), dev),
+                      count=_tensor(flat["count"], dev))
+
+
+def train_state_to_numpy(state: Dict[str, Any],
+                         bf16: Optional[np.dtype] = None
+                         ) -> Dict[str, np.ndarray]:
+    """``{"params.<key>", "opt.<key>"}`` of ``{"params", "opt"}``."""
+    out = {f"params.{k}": v
+           for k, v in params_to_numpy(state["params"], bf16).items()}
+    out.update({f"opt.{k}": v
+                for k, v in opt_state_to_numpy(state["opt"], bf16).items()})
+    return out
+
+
+def train_state_from_numpy(flat: Dict[str, np.ndarray], device=None
+                           ) -> Dict[str, Any]:
+    dev = resolve_device(device)
+    return {"params": params_from_numpy(_prefixed(flat, "params."), dev),
+            "opt": opt_state_from_numpy(_prefixed(flat, "opt."), dev)}

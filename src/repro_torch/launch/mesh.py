@@ -1,21 +1,115 @@
-"""The 1-D ``("index",)`` device mesh of the mesh-distributed index (port
-of the index half of ``repro.launch.mesh``).
+"""Meshes for the model and index planes (port of ``repro.launch.mesh``).
 
 One process a mesh device, in a ``torch.distributed`` process group the
 caller has initialised (address, world size and rank are the caller's):
-NCCL on the card, gloo on the CPU.  ``make_index_mesh`` returns a
-``DeviceMesh`` whose one dimension is named ``"index"``; the named
-dimension is what the reference's ``PartitionSpec("index")`` shards over.
-The model-mesh half of the reference module is not ported.
+NCCL on the card, gloo on the CPU.
+
+Model mesh.  ``make_production_mesh`` describes the 16x16 (one pod, 256
+devices) or 2x16x16 (two pods, 512) topology.  With fewer devices (the
+ranks of the default process group, or 1 without one) it degrades to a
+1xN ``("data", "model")`` mesh and warns with ``MeshFallbackWarning``, as
+the reference does.  ``make_host_mesh`` is the 1x1 mesh of one device
+and needs no process group.  Both return a ``ModelMesh``: axis names,
+sizes and the device (the reference's ``mesh.axis_names`` and
+``mesh.shape``, all that the sharding policy reads), with a
+``DeviceMesh`` where a process group exists.
+
+Index mesh.  ``make_index_mesh`` returns a ``DeviceMesh`` whose one
+dimension is named ``"index"``; the named dimension is what the
+reference's ``PartitionSpec("index")`` shards over.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch.core.skiplist import resolve_device
+
 INDEX_AXIS = "index"
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+
+PRODUCTION_SHAPE = (16, 16)
+PRODUCTION_AXES = ("data", "model")
+MULTI_POD_SHAPE = (2, 16, 16)
+MULTI_POD_AXES = ("pod", "data", "model")
+
+
+class MeshFallbackWarning(UserWarning):
+    """Requested topology does not fit the available devices; degraded."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelMesh:
+    """A model mesh: named axes of given sizes over devices of one type.
+    ``device_mesh`` is the ``DeviceMesh`` of the ranks, where a process
+    group exists (``None`` on one device without a group)."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    device: torch.device = torch.device("meta")
+    device_mesh: Optional[DeviceMesh] = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size (the reference's ``mesh.shape``)."""
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def _model_mesh(shape, axes, dev: torch.device) -> ModelMesh:
+    dm = None
+    if dist.is_initialized():
+        dm = DeviceMesh(dev.type, torch.arange(math.prod(shape)).reshape(
+            shape), mesh_dim_names=tuple(axes))
+    return ModelMesh(tuple(axes), tuple(int(s) for s in shape), dev, dm)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> ModelMesh:
+    """Production mesh, degrading to 1xN when devices are scarce.
+
+    Returns the 16x16 single-pod (256 devices) or 2x16x16 multi-pod (512)
+    mesh when the default process group has that many ranks.  Otherwise
+    it falls back to a 1xN ``("data", "model")`` mesh over the group's N
+    ranks (1 without a group) and warns with :class:`MeshFallbackWarning`;
+    callers that must not run degraded should turn the warning into an
+    error.  ``device=None`` means the GPU and raises without one.
+    """
+    dev = resolve_device(device)
+    shape = MULTI_POD_SHAPE if multi_pod else PRODUCTION_SHAPE
+    axes = MULTI_POD_AXES if multi_pod else PRODUCTION_AXES
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    need = math.prod(shape)
+    if n >= need:
+        return _model_mesh(shape, axes, dev)
+    warnings.warn(
+        f"mesh fallback: production topology {shape} needs {need} devices "
+        f"but only {n} are available; degrading to a "
+        f"1x{n} ('data', 'model') mesh",
+        MeshFallbackWarning, stacklevel=2)
+    return _model_mesh((1, n), PRODUCTION_AXES, dev)
+
+
+def make_host_mesh(device=None) -> ModelMesh:
+    """1x1 mesh over one device (the GPU for ``None``), for smoke tests
+    and examples; needs no process group."""
+    return ModelMesh(PRODUCTION_AXES, (1, 1), resolve_device(device))
+
+
+def dp_axes(mesh) -> tuple:
+    """Data-parallel mesh axes present in this mesh ('pod' + 'data')."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def dp_size(mesh) -> int:
+    out = 1
+    for a in dp_axes(mesh):
+        out *= mesh.shape[a]
+    return out
 
 
 def make_index_mesh(n_devices: int = 0, device=None) -> DeviceMesh:

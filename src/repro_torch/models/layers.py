@@ -16,8 +16,9 @@ Conventions
   norms and softmax statistics run in fp32.  On the CPU the products run
   on fp32 copies of their operands, so that the result does not depend on
   how torch accumulates bf16 there; on the card a bf16 product is one
-  cuBLAS call with fp32 accumulation.  Products of two activations
-  (attention scores and values) run in fp32 on both devices.
+  cuBLAS call with fp32 accumulation, and one with an fp32 output
+  takes its gradient through ``_F32Product``.  Products of two
+  activations (attention scores and values) run in fp32 on both devices.
 """
 from __future__ import annotations
 
@@ -40,6 +41,39 @@ def _in_fp32(a: torch.Tensor, b: torch.Tensor) -> bool:
             or b.dtype != torch.bfloat16)
 
 
+class _F32Product(torch.autograd.Function):
+    """``a @ b`` (``torch.mm``) or ``a.bmm(b)`` of two bf16 operands with an
+    fp32 output: one cuBLAS call with fp32 accumulation.  torch has no
+    derivative for ``aten::mm.dtype`` / ``aten::bmm.dtype``; this is the
+    reference's transpose rule for ``dot_general(...,
+    preferred_element_type=float32)``: the fp32 cotangent times the other
+    operand, accumulated in fp32 and cast to the operand's dtype.  The
+    cotangent is rounded to bf16 first, so that both backward products run
+    on the tensor cores as the forward does (widening the bf16 operand
+    instead would run them as fp32 products)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.dim() == 2:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        prod = torch.mm if a.dim() == 2 else torch.bmm
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = prod(g, b.transpose(-1, -2),
+                      out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = prod(a.transpose(-1, -2), g,
+                      out_dtype=torch.float32).to(b.dtype)
+        return ga, gb
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor,
            out_dtype: torch.dtype) -> torch.Tensor:
     """``a [..., K] @ b [K, N] -> [..., N]`` in ``out_dtype``, fp32
@@ -49,7 +83,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     if _in_fp32(a, b):
         out = (a2.float() @ b.float()).to(out_dtype)
     elif out_dtype == torch.float32:
-        out = torch.mm(a2, b, out_dtype=torch.float32)
+        out = _F32Product.apply(a2, b)
     else:
         out = (a2 @ b).to(out_dtype)
     return out.reshape(*lead, b.shape[-1])
@@ -61,7 +95,7 @@ def bmatmul(a: torch.Tensor, b: torch.Tensor,
     if _in_fp32(a, b):
         return torch.bmm(a.float(), b.float()).to(out_dtype)
     if out_dtype == torch.float32:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _F32Product.apply(a, b)
     return torch.bmm(a, b).to(out_dtype)
 
 

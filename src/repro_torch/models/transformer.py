@@ -17,20 +17,31 @@ Families:
 * vlm     — dense + patch-embedding stub prepended to the token sequence
 * audio   — whisper: bidirectional encoder stack + decoder with cross-attn
 
-The reference's sharding context ``cs``, its ``decode_attn_fn`` override
-and its rematerialisation policy are sharding and training concerns that
-the port does not take (``ModelConfig.remat`` is kept as a value).  Its
-quirks are kept: ``forward`` runs rotary at the default theta
-(``layers.attention_fwd``), while ``prefill`` and ``decode_step`` use
-``rope_theta``; decode's MoE runs at capacity factor 8.
+Training takes ``torch.autograd.grad`` of ``loss_fn`` (``train.step``).
+``ModelConfig.remat`` is honoured while grad is enabled, as the
+reference's ``jax.checkpoint`` around each rep of the scan: ``"none"``
+saves everything, ``"full"`` recomputes each rep's body in the backward
+pass, and ``"dots"`` (``dots_with_no_batch_dims_saveable``) saves the
+outputs of the 2-D weight products and recomputes the rest, the batched
+products (attention, the MoE experts) included.  The stacked params are
+split into reps once a forward (``torch.unbind``), so each leaf gets one
+stacked gradient.  The reference's sharding context ``cs`` is a sharding
+concern the port does not take; ``decode_step`` takes its
+``decode_attn_fn``.  Its quirks are kept: ``forward`` runs rotary at the
+default theta (``layers.attention_fwd``), while ``prefill`` and
+``decode_step`` use ``rope_theta``; decode's MoE runs at capacity factor
+8.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.skiplist import resolve_device
 from repro_torch.models import layers as L
@@ -127,6 +138,20 @@ def _at(tree: PyTree, r: int) -> PyTree:
     if isinstance(tree, list):
         return [_at(v, r) for v in tree]
     return tree[r]
+
+
+def _unbind(tree: PyTree) -> List[PyTree]:
+    """Every rep of a tree of stacked ``[reps, ...]`` tensors, split once
+    (``torch.unbind``: one stacked gradient a leaf, where ``_at`` per rep
+    would give each rep's gradient the size of the whole stack)."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v) for k, v in tree.items()}
+        reps = len(next(iter(per.values())))
+        return [{k: v[r] for k, v in per.items()} for r in range(reps)]
+    if isinstance(tree, list):
+        per = [_unbind(v) for v in tree]
+        return [[v[r] for v in per] for r in range(len(per[0]))]
+    return list(torch.unbind(tree))
 
 
 # ---------------------------------------------------------------------------
@@ -249,22 +274,54 @@ def _block_body(cfg: ModelConfig, pattern, carry, block_params, positions,
     return x, aux
 
 
+# The ops whose outputs "dots" saves: the 2-D products (the weight
+# products; ``layers._F32Product`` runs ``mm.dtype``).  Batched products
+# (``bmm``, einsum over batch dims) are recomputed, as the reference's
+# ``dots_with_no_batch_dims_saveable`` keeps only dots without batch dims.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, body):
+    """``body`` under ``cfg.remat`` (the reference's ``_remat_policy``:
+    ``"none"``, ``"full"``, anything else ``"dots"``), only while grad is
+    enabled."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return body
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    return functools.partial(
+        checkpoint, body, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _save_dots))
+
+
 def _run_stack(cfg: ModelConfig, blocks: Sequence[PyTree], x: torch.Tensor,
                positions: torch.Tensor, *, causal: bool = True,
                pattern=None, cross: Optional[PyTree] = None,
                enc_out: Optional[torch.Tensor] = None):
     """Run the stacked super-blocks, rep by rep. Returns (x, aux_loss)."""
     pattern = pattern or cfg.pattern()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    reps = leaves(blocks)[0].shape[0]
-    for r in range(reps):
-        x, aux = _block_body(cfg, pattern, (x, aux), _at(list(blocks), r),
+
+    def body(x, aux, block_params, cross_p):
+        x, aux = _block_body(cfg, pattern, (x, aux), block_params,
                              positions, causal)
-        if cross is not None:                         # whisper cross-attn
-            cp = _at(cross, r)
-            h = L.rms_norm(x, cp["ln"])
-            x = x + L.attention_fwd(cp["attn"], h, positions,
+        if cross_p is not None:                       # whisper cross-attn
+            h = L.rms_norm(x, cross_p["ln"])
+            x = x + L.attention_fwd(cross_p["attn"], h, positions,
                                     kv_override=enc_out)
+        return x, aux
+
+    step = _remat(cfg, body)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    reps = _unbind(list(blocks))
+    crosses = _unbind(cross) if cross is not None else [None] * len(reps)
+    for block_params, cross_p in zip(reps, crosses):
+        x, aux = step(x, aux, block_params, cross_p)
     return x, aux
 
 
@@ -316,8 +373,8 @@ def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
 def loss_fn(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
             labels: torch.Tensor, extra_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy + z-loss + MoE aux (a value; no gradient
-    is taken in the port yet)."""
+    """Next-token cross-entropy + z-loss + MoE aux: ``(total, parts)``,
+    differentiable in ``params`` (``train.step`` takes its gradient)."""
     logits, aux = forward(cfg, params, tokens, extra_embeds)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
@@ -384,8 +441,12 @@ def _rotary_qk(cfg: ModelConfig, p: PyTree, h: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, PyTree]:
+                tokens: torch.Tensor, decode_attn_fn=None
+                ) -> Tuple[torch.Tensor, PyTree]:
     """One-token decode. tokens [B,1] -> (logits [B,V] fp32, new cache).
+
+    ``decode_attn_fn`` overrides the attention-vs-cache primitive (the
+    sequence-sharded ``parallel.decode_attn`` plugs in here).
 
     The input cache is left as it is; the new one is written into fresh
     tensors of the same shapes.
@@ -393,6 +454,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
     x = L.embed_fwd(params["embed"], tokens)
     position = cache["pos"]
     enc_out = cache.get("enc_out")
+    attn_fn = decode_attn_fn or L.decode_attention
     pattern = cfg.pattern()
     new_blocks = _empty_like_blocks(cache["blocks"])
     for r in range(cfg.reps):
@@ -406,7 +468,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
                 L.cache_write(cc["k"], k, cc["len"], out=nc["k"])
                 L.cache_write(cc["v"], v, cc["len"], out=nc["v"])
                 torch.add(cc["len"], 1, out=nc["len"])
-                o = L.decode_attention(q, nc["k"], nc["v"], nc["len"])
+                o = attn_fn(q, nc["k"], nc["v"], nc["len"])
                 mx = L.contract(o, p["mixer"]["wo"], 2, h.dtype)
             else:
                 step = M.mamba_decode if mixer == "mamba" else R.rwkv6_decode

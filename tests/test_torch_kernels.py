@@ -201,7 +201,9 @@ def test_import_leaves_jax_unloaded():
 def test_no_file_of_the_port_imports_jax_or_repro():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)",
                          re.MULTILINE)
-    files = sorted(PKG.rglob("*.py")) + [PKG.parent.parent / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [PKG.parent.parent / name for name in
+                                        ("chip_smoke.py",
+                                         "chip_probe_train.py")]
     assert len(files) >= 11
     offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert not offenders, offenders
