@@ -134,11 +134,11 @@ Phases, one JSON line each:
 12. the paged-KV page table (``serving.kvcache``) of a card's pool, once
    per variant: 2^15 pages of 16 tokens (Llama-3-8B's KV at 64 GiB),
    ``use_kernel`` and in-place rebalancing (8 shards of 16384 slots); 8
-   prefill bursts of 34 sequences of 16 blocks through ``try_alloc``
+   prefill bursts of 9 sequences of 16 blocks through ``try_alloc``
    under a seeded ``FaultSchedule`` at ``kvcache.alloc`` (one forced pool
    exhaustion, one forced capacity failure), a decode lookup of every
-   block of the newest 256 sequences (4096 lanes, K5/K6) a burst,
-   ``release`` of the oldest past 256; a request past a 256-page pool
+   block of the newest 64 sequences (1024 lanes, K5/K6) a burst,
+   ``release`` of the oldest past 64; a request past a 256-page pool
    that must grant a prefix; conservation, a host dict, the sharded
    invariant and ``InvariantWatchdog`` over a stub engine checked; the
    decode lookup's time and us an alloc and a release;
@@ -201,7 +201,31 @@ Phases, one JSON line each:
    attention counted as S(S+1)/2 positions, the masked half the port
    computes reported apart) and their share of the bf16 peak and of the
    bound, peak memory and the profile by kernel kind;
-17. the script's wall seconds, then the ``kernels`` line: every ported
+17. ``mesh_model_one_card``, the model plane through DTensor on the 1x1
+   ``DeviceMesh`` of the one-rank NCCL group (``launch.mesh.model_mesh``):
+   the step factories place params, moments, batches and caches by their
+   spec trees and run under the policy's ``cs``; held against the same
+   factories on the host mesh (plain tensors) on the same params and
+   inputs: llama3_8b's full ``CONFIG`` (a prefill of 2 x 256 tokens, 8
+   decode steps on seeded tokens; logits within ``MESH_TOL`` of max abs,
+   bit equality reported), its widths at 2 of 32 layers trained 3 steps
+   on 4 x 1024 tokens (losses and grad norms within ``MESH_TOL``), and
+   granite_moe_1b's full ``CONFIG`` (the grouped MoE dispatch under
+   ``cs``): a train step on 2 x 256 tokens and a decode step; ms a step
+   on each path; both paths under ``torch.use_deterministic_algorithms``
+   (the MoE combine's ``index_add_`` and the embedding's backward
+   accumulate in a fixed order, so the two paths' sums agree);
+18. ``dryrun_cells``: ``python -m repro_torch.launch.dryrun`` (a fake
+   process group of 256 or 512 ranks, the step traced on fake CUDA
+   tensors) for llama3_8b x train_4k on 16x16, phi35_moe_42b x train_4k
+   and jamba_15_large_398b x decode_32k on 2x16x16, three processes
+   started together after every timed phase (so that no measured number
+   shares the host with them), each one's standard error in a file; per
+   device: argument, output and peak GiB beside the card's 80 GB
+   (``fits_80gb`` is reported, not required: the traced peak is the
+   port's, ROADMAP item 17), product FLOPs and collective bytes by kind;
+   any cell that fails to trace fails the run;
+19. the script's wall seconds, then the ``kernels`` line: every ported
    kernel with its main-path launches (K5/K6's include those K10, the
    store and the page table made; K1-K4's those of the store, K1's also
    those of the full-width training path), the fat
@@ -261,12 +285,13 @@ from repro_torch.kernels import shard_group as sg  # noqa: E402
 from repro_torch.kernels import validated_traverse as vt  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh, make_index_mesh  # noqa: E402,E501
+from repro_torch.launch.mesh import (make_host_mesh,  # noqa: E402
+                                     make_index_mesh, model_mesh)
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import moe as TMOE  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.parallel.sharding import policy_for  # noqa: E402
+from repro_torch.parallel.sharding import place_tree, policy_for  # noqa: E402,E501
 from repro_torch.runtime.chaos import (CAPACITY_FAIL,  # noqa: E402
                                        POOL_EXHAUSTED, FaultInjector,
                                        FaultSchedule)
@@ -2261,14 +2286,17 @@ SCAN_OUT = 2048
 # weights on one 80 GB card.
 PT_PAGES, PT_PAGE_TOKENS, PT_LEVELS = 2**15, 16, 16
 PT_BLOCKS = 16               # blocks a sequence: 256-token contexts
-PT_RUNNING = 256             # sequences a decode step looks up: 4096 lanes
+PT_RUNNING = 64              # sequences a decode step looks up: 1024 lanes
 # The stream is cut, not the pool: an inserted page costs ~20 ms on the
-# card (the update path is a host loop, ROADMAP 7b), so 8 bursts of 34
-# sequences (2 denied by faults) admit 270, 4320 pages (13% of the pool),
-# under two minutes a variant.  Filling the pool would take ~10 minutes,
-# so the request past the pool runs on a pool of PT_PAST_POOL pages, the
-# same configuration otherwise.
-PT_PREFILL, PT_BURSTS = 34, 8    # sequences admitted a burst; bursts
+# card (the update path is a host loop, ROADMAP 7b), so 8 bursts of 9
+# sequences (2 denied by faults) admit 70, 1120 pages (3.4% of the
+# pool), and the 6 past PT_RUNNING are released, about half a minute a
+# variant (34 a burst and 256 running sequences until the dry-run cells
+# joined the script, then 17 and 128; halved twice to keep the script
+# inside its time).  Filling the pool would take ~10 minutes, so the
+# request past the pool runs on a pool of PT_PAST_POOL pages, the same
+# configuration otherwise.
+PT_PREFILL, PT_BURSTS = 9, 8     # sequences admitted a burst; bursts
 PT_PAST_POOL = 256
 PT_FAULT_SEED = 1            # FaultSchedule.random at kvcache.alloc:
                              # pool_exhausted at burst 4, capacity_fail at 7
@@ -2521,11 +2549,13 @@ def page_table_full_size(foresight: bool) -> tuple:
     reference's rule: 8 shards of 16384 slots).  ``PT_BURSTS`` bursts:
     ``try_alloc`` of ``PT_PREFILL`` new sequences of 16 blocks (a seeded
     ``FaultSchedule`` at ``kvcache.alloc`` forces a zero grant or a failed
-    one), a decode step that looks up every block of the newest 256
-    running sequences (4096 lanes; K5/K6), and ``release`` of the oldest
-    past 256.  Then one ``try_alloc`` past a pool of ``PT_PAST_POOL``
-    pages, which must grant the free prefix.  Checks: conservation after every burst, every lookup against
-    a host dict, the sharded invariant, the watchdog over ``ServeStub``.
+    one), a decode step that looks up every block of the newest
+    ``PT_RUNNING`` running sequences (16 lanes each; K5/K6), and
+    ``release`` of the oldest past ``PT_RUNNING``.  Then one
+    ``try_alloc`` past a pool of ``PT_PAST_POOL`` pages, which must grant
+    the free prefix.  Checks: conservation after every burst, every
+    lookup against a host dict, the sharded invariant, the watchdog over
+    ``ServeStub``.
     Returns (report, launches on the main path)."""
     stage_s, t_stage = {}, time.perf_counter()
     t_phase = t_stage
@@ -3383,7 +3413,7 @@ def train_smoke_check() -> dict:
         state = {"params": params, "opt": opt}
         mgr = CheckpointManager(os.path.join(d, "c"))
         mgr.save(1, state)
-        back = mgr.restore(1, {"params": p_abs, "opt": o_abs}, DEVICE)
+        back = mgr.restore(1, {"params": p_abs, "opt": o_abs}, device=DEVICE)
         want, got = train_state_to_numpy(state), train_state_to_numpy(back)
         on_card = [t.device.type == torch.device(DEVICE).type
                    for t in adamw.tree_leaves([back["params"],
@@ -3637,6 +3667,230 @@ def train_full_width() -> dict:
     return report
 
 
+MESH_TOL = 1e-3                # mesh against plain, of max abs (bf16)
+MESH_PROMPT, MESH_BATCH, MESH_DECODES = 256, 2, 8
+MESH_TRAIN_DEPTH, MESH_TRAIN_STEPS = 2, 3
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 1024
+MESH_MOE_ARCH, MESH_MOE_BATCH, MESH_MOE_SEQ = "granite_moe_1b", 2, 256
+DRYRUN_CELLS = (("llama3_8b", "train_4k", False),
+                ("phi35_moe_42b", "train_4k", True),
+                ("jamba_15_large_398b", "decode_32k", True))
+CARD_BYTES = 80e9
+
+
+def plain(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (a plain tensor passes)."""
+    return t.full_tensor() if hasattr(t, "placements") else t
+
+
+def timed(fn) -> tuple:
+    """(fn(), its ms by the host clock around a synchronised call)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def serve_on(cfg, mesh, params, toks, fed, max_len: int) -> dict:
+    """Prefill ``toks`` then decode ``fed`` through the step factories on
+    ``mesh``; the logits (plain) and each call's ms."""
+    B = toks.shape[0]
+    pol = policy_for(cfg.name)
+    pre, (p_shd, _, _), _ = STEP.make_prefill_step(cfg, pol, mesh, B,
+                                                   toks.shape[1], max_len)
+    dec, _, _ = STEP.make_decode_step(cfg, pol, mesh, B, max_len)
+    params = place_tree(params, p_shd, mesh)
+    (lg, cache), pre_ms = timed(lambda: pre(params, {"tokens": toks}))
+    out = {"logits": [plain(lg)], "prefill_ms": pre_ms, "decode_ms": []}
+    for t in fed:
+        (lg, cache), ms = timed(lambda: dec(params, cache, {"tokens": t}))
+        out["logits"].append(plain(lg))
+        out["decode_ms"].append(ms)
+    check(all(hasattr(v, "placements") for _, v in flat_items(cache))
+          == (mesh.device_mesh is not None), "the cache placed on the mesh")
+    return out
+
+
+def train_on(cfg, mesh, params, batches, opt_cfg) -> dict:
+    """``make_train_step`` on ``mesh`` over ``batches`` from a copy of
+    ``params``: losses, grad norms and ms a step."""
+    B = batches[0]["tokens"].shape[0]
+    fn, (p_shd, o_shd, _), _ = STEP.make_train_step(
+        cfg, policy_for(cfg.name), mesh, B, opt_cfg)
+    params = place_tree(adamw.tree_map(torch.clone, params), p_shd, mesh)
+    opt = place_tree(adamw.init(opt_cfg, params), o_shd, mesh)
+    out = {"loss": [], "grad_norm": [], "ms": []}
+    for batch in batches:
+        (params, opt, m), ms = timed(lambda: fn(params, opt, batch))
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["ms"].append(ms)
+    check(all(hasattr(v, "placements") for _, v in flat_items(params))
+          == (mesh.device_mesh is not None), "the params placed on the mesh")
+    return out
+
+
+def rel_gaps(got: list, want: list) -> float:
+    return max(abs(g - w) / max(abs(w), 1e-12) for g, w in zip(got, want))
+
+
+def mesh_model_one_card() -> dict:
+    """The model plane through DTensor on the 1x1 DeviceMesh of the
+    one-rank group, against the plain path."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = model_mesh((1, 1), ("data", "model"), DEVICE)
+    host = make_host_mesh(DEVICE)
+    check(mesh.device_mesh is not None, "a DeviceMesh on the NCCL group")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    report = {"phase": "mesh_model_one_card"}
+
+    # llama3_8b's full CONFIG: prefill and decode
+    cfg = cfgs.get_config(FULL_ARCH)
+    params = TT.init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab, (MESH_BATCH, MESH_PROMPT),
+                         generator=gen, device=DEVICE, dtype=torch.int32)
+    fed = [torch.randint(0, cfg.vocab, (MESH_BATCH, 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+           for _ in range(MESH_DECODES)]
+    max_len = MESH_PROMPT + MESH_DECODES
+    with deterministic():
+        runs = {name: serve_on(cfg, m, params, toks, fed, max_len)
+                for name, m in (("mesh", mesh), ("plain", host))}
+    gaps = [gap_frac(a, b) for a, b in zip(runs["mesh"]["logits"],
+                                           runs["plain"]["logits"])]
+    report["llama3_8b_serve"] = {
+        "prefill_ms": {k: r["prefill_ms"] for k, r in runs.items()},
+        "decode_ms": {k: statistics.median(r["decode_ms"])
+                      for k, r in runs.items()},
+        "max_logit_gap": max(gaps),
+        "bit_equal": all(torch.equal(a, b) for a, b in zip(
+            runs["mesh"]["logits"], runs["plain"]["logits"]))}
+    del runs
+
+    # its widths at 2 layers: three train steps on each path
+    tcfg, tparams = layers_of(cfg, params, MESH_TRAIN_DEPTH)
+    tparams = adamw.tree_map(torch.clone, tparams)
+    del params
+    torch.cuda.empty_cache()
+    contraction_fan_in(tcfg, tparams)
+    batches = []
+    for _ in range(MESH_TRAIN_STEPS):
+        t = torch.randint(0, cfg.vocab, (MESH_TRAIN_BATCH,
+                                         MESH_TRAIN_SEQ + 1),
+                          generator=gen, device=DEVICE, dtype=torch.int32)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    opt_cfg = adamw.config_for(FULL_ARCH, total_steps=1000)
+    with deterministic():
+        runs = {name: train_on(tcfg, m, tparams, batches, opt_cfg)
+                for name, m in (("mesh", mesh), ("plain", host))}
+    report["llama3_8b_train"] = {
+        "ms": {k: statistics.median(r["ms"][1:]) for k, r in runs.items()},
+        "loss": runs["mesh"]["loss"], "plain_loss": runs["plain"]["loss"],
+        "loss_gap": rel_gaps(runs["mesh"]["loss"], runs["plain"]["loss"]),
+        "grad_norm_gap": rel_gaps(runs["mesh"]["grad_norm"],
+                                  runs["plain"]["grad_norm"])}
+    del tparams, runs, batches
+    torch.cuda.empty_cache()
+
+    # granite_moe_1b's full CONFIG: the grouped MoE dispatch under cs
+    cfg = cfgs.get_config(MESH_MOE_ARCH)
+    params = TT.init_params(cfg, gen)
+    t = torch.randint(0, cfg.vocab, (MESH_MOE_BATCH, MESH_MOE_SEQ + 1),
+                      generator=gen, device=DEVICE, dtype=torch.int32)
+    batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    opt_cfg = adamw.config_for(MESH_MOE_ARCH, total_steps=1000)
+    with deterministic():
+        runs = {name: train_on(cfg, m, params, [batch], opt_cfg)
+                for name, m in (("mesh", mesh), ("plain", host))}
+        srv = {name: serve_on(cfg, m, params, t[:, :16], [t[:, 16:17]], 32)
+               for name, m in (("mesh", mesh), ("plain", host))}
+    moe_gaps = [gap_frac(a, b) for a, b in zip(srv["mesh"]["logits"],
+                                               srv["plain"]["logits"])]
+    report["granite_moe_1b"] = {
+        "train_ms": {k: r["ms"][0] for k, r in runs.items()},
+        "decode_ms": {k: r["decode_ms"][0] for k, r in srv.items()},
+        "loss": runs["mesh"]["loss"][0],
+        "loss_gap": rel_gaps(runs["mesh"]["loss"], runs["plain"]["loss"]),
+        "grad_norm_gap": rel_gaps(runs["mesh"]["grad_norm"],
+                                  runs["plain"]["grad_norm"]),
+        "max_logit_gap": max(moe_gaps)}
+    del params, runs, srv
+    torch.cuda.empty_cache()
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+    serve, train, moe = (report[k] for k in (
+        "llama3_8b_serve", "llama3_8b_train", "granite_moe_1b"))
+    check(serve["max_logit_gap"] <= MESH_TOL, "mesh: llama3_8b logits "
+          "equal the plain path's within MESH_TOL")
+    check(train["loss_gap"] <= MESH_TOL
+          and train["grad_norm_gap"] <= MESH_TOL,
+          "mesh: the train steps' losses and grad norms equal the plain "
+          "path's within MESH_TOL")
+    check(moe["loss_gap"] <= MESH_TOL and moe["grad_norm_gap"] <= MESH_TOL
+          and moe["max_logit_gap"] <= MESH_TOL,
+          "mesh: granite_moe_1b's step and decode equal the plain path's "
+          "within MESH_TOL")
+    return report
+
+
+def dryrun_cells() -> dict:
+    """The three dry-run cells, each in a process of its own (a process
+    has one default group), all started together after the timed phases,
+    so that their host work overlaps none of them; each one's standard
+    error goes to a file.  Their per-device memory, FLOPs and
+    collectives."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"), OMP_NUM_THREADS="1")
+    report = {"phase": "dryrun_cells", "cells": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        try:
+            for i, (arch, shape, mp) in enumerate(DRYRUN_CELLS):
+                out = os.path.join(tmp, f"cell_{i}.json")
+                err = open(os.path.join(tmp, f"cell_{i}.err"), "w+")
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--out", out]
+                procs.append((out, err, subprocess.Popen(
+                    cmd + (["--multi-pod"] if mp else []), env=env,
+                    stdout=subprocess.DEVNULL, stderr=err)))
+            for (out, err, proc), (arch, shape, mp) in zip(procs,
+                                                           DRYRUN_CELLS):
+                proc.wait()
+                err.seek(0)
+                check(proc.returncode == 0 and os.path.exists(out),
+                      f"dry-run {arch} x {shape}: {err.read()[-2000:]}")
+                with open(out) as f:
+                    res = json.load(f)
+                mem = res["memory_analysis"]
+                report["cells"].append({
+                    "arch": arch, "shape": shape,
+                    "mesh": "2x16x16" if mp else "16x16",
+                    "device": res["device"],
+                    "argument_gib": mem["argument_size_in_bytes"] / 2**30,
+                    "output_gib": mem["output_size_in_bytes"] / 2**30,
+                    "peak_gib": mem["peak_size_in_bytes"] / 2**30,
+                    "fits_80gb": mem["peak_size_in_bytes"] <= CARD_BYTES,
+                    "flops": res["cost_analysis"]["flops"],
+                    "collective_bytes": res["collectives"]["per_kind"],
+                    "trace_s": res["compile_s"], "build_s": res["lower_s"]})
+                check(res["ok"] and res["device"] == "cuda",
+                      f"dry-run {arch} x {shape} traced on fake CUDA tensors")
+        finally:
+            for _, err, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+                err.close()
+    report["seconds"] = time.perf_counter() - t0
+    emit(report)
+    return report
+
+
 def zipf_queries(keys: np.ndarray, batch: int, a: float = ZIPF_A,
                  seed: int = 1) -> np.ndarray:
     """benchmarks/common.py:55-60: Zipf(a) over the key population by rank."""
@@ -3650,6 +3904,11 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device")
     smi = card_identity()
     build_kernels()
+    run_phases(smi, t_start)
+
+
+def run_phases(smi: str, t_start: float) -> None:
+    """Every phase after the build."""
     small_check()
     small_update_check()
     small_sharded_check()
@@ -3785,6 +4044,10 @@ def main() -> None:
     for _, paths in plane_runs:
         for name, n in paths.items():
             by_name[name]["launches"] += n
+    # The model across a mesh: DTensor on the one-rank group's 1x1
+    # DeviceMesh (no kernel of the table)
+    torch.cuda.empty_cache()
+    mesh_model_one_card()
     dist.destroy_process_group()
     # The LLM serving path: no kernel of the table runs on it (the
     # engine's page table keeps the reference's use_kernel=False)
@@ -3795,6 +4058,8 @@ def main() -> None:
     train_smoke_check()
     for name, n in train_full_width()["launches"].items():
         by_name[name]["launches"] += n
+    # the dry-run's fake groups, on the host alone (no kernel of the table)
+    dryrun_cells()
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(smi)

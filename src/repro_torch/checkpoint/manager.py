@@ -6,7 +6,16 @@ Fault-tolerance contract:
   to ``<dir>/step_<k>`` only after every leaf and the manifest are
   written; a crash mid-save never corrupts the latest checkpoint.
 * **Mesh-agnostic restore**: leaves are saved as whole numpy arrays;
-  ``restore`` places them on any device.
+  ``restore`` places them on any device, or by a spec tree on any mesh
+  (``shardings=``, ``mesh=``), as the reference's ``restore(...,
+  shardings)`` does.
+* **On a mesh** (DTensor leaves) every rank calls ``save``: each leaf is
+  gathered whole (``full_tensor``, a collective, one leaf at a time), and
+  rank 0 of the default process group alone keeps it and writes, then
+  all ranks meet at a barrier;
+  so the files are byte for byte those of the same tree saved from one
+  device.  ``save_async`` gathers at once and writes in rank 0's
+  thread.
 * **Retention**: the newest ``keep`` checkpoints stay; older ones are
   deleted only after a newer one is durable.
 * **Async**: ``save_async`` copies to host memory at once and writes in a
@@ -33,8 +42,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.skiplist import resolve_device
+from repro_torch.parallel.sharding import is_dtensor, place_tree
 
 PyTree = Any
 
@@ -123,18 +134,39 @@ class CheckpointManager:
 
     def _snapshot(self, tree: PyTree):
         leaves, _ = tree_flatten(tree)
-        return [_host(x) for x in leaves], treedef_str(tree)
+        mesh = any(is_dtensor(x) for x in leaves)
+        writer = self._writer(mesh)
+        host = []
+        for x in leaves:       # every rank gathers (a collective) in order
+            whole = x.full_tensor() if is_dtensor(x) else x
+            if writer:
+                host.append(_host(whole))
+        return host, treedef_str(tree), mesh
+
+    @staticmethod
+    def _writer(mesh: bool) -> bool:
+        """Whether this process writes: every process without a mesh,
+        rank 0 of the default group on one."""
+        return not mesh or not dist.is_initialized() or dist.get_rank() == 0
 
     def save(self, step: int, tree: PyTree, extra: Optional[Dict] = None
              ) -> str:
-        return self._write(step, *self._snapshot(tree), extra or {})
+        leaves, treedef, mesh = self._snapshot(tree)
+        final = os.path.join(self.dir, f"step_{step}")
+        if self._writer(mesh):
+            final = self._write(step, leaves, treedef, extra or {})
+        if mesh and dist.is_initialized():
+            dist.barrier()
+        return final
 
     def save_async(self, step: int, tree: PyTree,
                    extra: Optional[Dict] = None) -> threading.Thread:
-        """Snapshot synchronously, write in the background."""
-        t = threading.Thread(target=self._write,
-                             args=(step, *self._snapshot(tree), extra or {}),
-                             daemon=True)
+        """Snapshot synchronously, write in the background (on a mesh,
+        in rank 0's thread; the others' threads do nothing)."""
+        leaves, treedef, mesh = self._snapshot(tree)
+        args = (step, leaves, treedef, extra or {})
+        t = threading.Thread(target=self._write if self._writer(mesh)
+                             else lambda *a: None, args=args, daemon=True)
         t.start()
         self._pending.append(t)
         return t
@@ -179,11 +211,19 @@ class CheckpointManager:
 
     # -- restore ------------------------------------------------------------
 
-    def restore(self, step: int, abstract_tree: PyTree, device=None
+    def restore(self, step: int, abstract_tree: PyTree,
+                shardings: Optional[PyTree] = None, mesh=None, device=None
                 ) -> PyTree:
         """Load the leaves into ``abstract_tree``'s structure (its leaves
-        are only counted) as tensors on ``device`` (``None``: the GPU)."""
-        dev = resolve_device(device)
+        are only counted) as tensors on ``device`` (``None``: the GPU),
+        or, given ``shardings`` (a spec tree like the abstract tree) and
+        ``mesh`` (a ``launch.mesh.ModelMesh``), on the mesh's device
+        placed by the specs: DTensors where the mesh has a
+        ``device_mesh``.  Every rank reads the files."""
+        if shardings is not None and mesh is None:
+            raise ValueError("restore: shardings= needs the mesh= they "
+                             "name")
+        dev = mesh.device if mesh is not None else resolve_device(device)
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "MANIFEST.json")) as f:
             manifest = json.load(f)
@@ -201,11 +241,17 @@ class CheckpointManager:
             if tag == "bfloat16":
                 t = t.view(torch.bfloat16)
             out.append(t.to(dev))
-        return unflatten(iter(out))
+        tree = unflatten(iter(out))
+        if shardings is not None:
+            tree = place_tree(tree, shardings, mesh)
+        return tree
 
-    def restore_latest(self, abstract_tree: PyTree, device=None
+    def restore_latest(self, abstract_tree: PyTree,
+                       shardings: Optional[PyTree] = None, mesh=None,
+                       device=None
                        ) -> Tuple[Optional[int], Optional[PyTree]]:
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, abstract_tree, device)
+        return step, self.restore(step, abstract_tree, shardings, mesh,
+                                  device)

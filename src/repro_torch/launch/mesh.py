@@ -4,15 +4,19 @@ One process a mesh device, in a ``torch.distributed`` process group the
 caller has initialised (address, world size and rank are the caller's):
 NCCL on the card, gloo on the CPU.
 
-Model mesh.  ``make_production_mesh`` describes the 16x16 (one pod, 256
-devices) or 2x16x16 (two pods, 512) topology.  With fewer devices (the
-ranks of the default process group, or 1 without one) it degrades to a
-1xN ``("data", "model")`` mesh and warns with ``MeshFallbackWarning``, as
-the reference does.  ``make_host_mesh`` is the 1x1 mesh of one device
-and needs no process group.  Both return a ``ModelMesh``: axis names,
-sizes and the device (the reference's ``mesh.axis_names`` and
-``mesh.shape``, all that the sharding policy reads), with a
-``DeviceMesh`` where a process group exists.
+Model mesh. ``make_production_mesh`` describes the 16x16 (one pod, 256
+devices) or 2x16x16 (two pods, 512) topology, with a ``DeviceMesh`` of
+the caller's device type whenever the default process group has that
+many ranks, a fake group's included (``launch.dryrun`` opens one of 256
+or 512 ranks). With fewer devices (the ranks of the default process
+group, or 1 without one) it degrades to a 1xN ``("data", "model")`` mesh
+and warns with ``MeshFallbackWarning``, as the reference does.
+``make_host_mesh`` is the 1x1 mesh of one device and needs no process
+group; ``model_mesh`` any shape over the group's first ranks. Both
+return a ``ModelMesh``: axis names, sizes and the device (the
+reference's ``mesh.axis_names`` and ``mesh.shape``, all that the
+sharding policy reads), with a ``DeviceMesh`` where a process group
+exists.
 
 Index mesh.  ``make_index_mesh`` returns a ``DeviceMesh`` whose one
 dimension is named ``"index"``; the named dimension is what the
@@ -58,6 +62,15 @@ class ModelMesh:
     def shape(self) -> Dict[str, int]:
         """Axis name -> size (the reference's ``mesh.shape``)."""
         return dict(zip(self.axis_names, self.sizes))
+
+
+def model_mesh(shape, axes, device=None) -> ModelMesh:
+    """A model mesh of named ``axes`` of the given sizes over ranks
+    ``0 .. prod(shape) - 1`` of the default process group (a
+    ``DeviceMesh`` of the device's type; none without a group), e.g. the
+    2x4 ``("data", "model")`` mesh of eight gloo ranks.  ``device=None``
+    means the GPU and raises without one."""
+    return _model_mesh(shape, axes, resolve_device(device))
 
 
 def _model_mesh(shape, axes, dev: torch.device) -> ModelMesh:

@@ -87,7 +87,7 @@ def run(args: argparse.Namespace) -> List[tuple]:
     start = 0
     if ckpt is not None and ckpt.latest_step() is not None:
         start = ckpt.latest_step()
-        state = ckpt.restore(start, state_abs, dev)
+        state = ckpt.restore(start, state_abs, device=dev)
         print(f"resumed from checkpoint step {start}", flush=True)
     else:
         state = fresh_state()
@@ -112,7 +112,7 @@ def run(args: argparse.Namespace) -> List[tuple]:
                 raise InjectedFailure("no checkpoint dir configured")
             rs = ckpt.latest_step() or 0
             if rs:
-                st2 = ckpt.restore(rs, state_abs, dev)
+                st2 = ckpt.restore(rs, state_abs, device=dev)
                 params, opt_state = st2["params"], st2["opt"]
             else:
                 state = fresh_state()

@@ -19,13 +19,23 @@ Conventions
   cuBLAS call with fp32 accumulation, and one with an fp32 output
   takes its gradient through ``_F32Product``.  Products of two
   activations (attention scores and values) run in fp32 on both devices.
+* On a mesh the params and activations are DTensors (``parallel.
+  sharding``): a product runs on each rank's local shards
+  (``_mesh_matmul``, ``sharding.on_shards`` around the same local products,
+  ``_F32Product`` included, so torch's missing DTensor strategies for
+  ``aten.mm.dtype`` / ``aten.bmm.dtype`` are never needed), as do
+  attention (``attend``) and the embedding.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.parallel.sharding import (is_dtensor, on_shards,
+                                           reshape_placements, whole)
 
 PyTree = Any
 
@@ -34,11 +44,33 @@ PyTree = Any
 # Products with fp32 accumulation
 # ---------------------------------------------------------------------------
 
+_CARD_NUMERICS = False
+
+
+@contextlib.contextmanager
+def card_numerics():
+    """Products run as the card runs them whatever the tensors' device:
+    bf16 operands, fp32 accumulation, no fp32 copies.  The dry-run traces
+    under it (``launch.dryrun``), on fake tensors of any device type, so
+    that what it counts (bytes held, moved and multiplied) is the card's
+    and not the fp32 upcasts the CPU path makes.  This is the port's twin
+    of the reference's ``REPRO_MOE_BF16`` (set by its dry-run so that the
+    MoE's einsums stay bf16 on the CPU backend).  Outside it the numerics
+    are as the module docstring says."""
+    global _CARD_NUMERICS
+    old, _CARD_NUMERICS = _CARD_NUMERICS, True
+    try:
+        yield
+    finally:
+        _CARD_NUMERICS = old
+
+
 def _in_fp32(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Whether a product runs on fp32 copies: on the CPU, or with an fp32
-    operand (the reference promotes those to fp32)."""
-    return (a.device.type == "cpu" or a.dtype != torch.bfloat16
-            or b.dtype != torch.bfloat16)
+    """Whether a product runs on fp32 copies: on the CPU (outside
+    ``card_numerics``), or with an fp32 operand (the reference promotes
+    those to fp32)."""
+    return ((a.device.type == "cpu" and not _CARD_NUMERICS)
+            or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16)
 
 
 class _F32Product(torch.autograd.Function):
@@ -74,19 +106,115 @@ class _F32Product(torch.autograd.Function):
         return ga, gb
 
 
+def _reshape_d(t: torch.Tensor, shape) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    src, dst = reshape_placements(t, shape)
+    if src != list(t.placements):
+        t = t.redistribute(t.device_mesh, src)
+    local = t.to_local()
+    parts = [1] * len(shape)
+    for m, p in enumerate(dst):
+        if p.is_shard():
+            parts[p.dim] *= t.device_mesh.size(m)
+    out = local.reshape(*(n // k for n, k in zip(shape, parts)))
+    stride = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+    return DTensor.from_local(out, t.device_mesh, dst, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+class _DReshape(torch.autograd.Function):
+    """A DTensor reshape on local shards whose backward reshapes the
+    gradient by the same rule (the gradient may arrive split where the
+    forward was not)."""
+
+    @staticmethod
+    def forward(ctx, t, shape):
+        ctx.shape = tuple(t.shape)
+        return _reshape_d(t, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reshape_d(g, ctx.shape), None
+
+
+def reshape(t: torch.Tensor, *shape) -> torch.Tensor:
+    """``t.reshape(*shape)``.  A DTensor reshapes each rank's shard
+    (``sharding.reshape_placements``): a split that the new shape keeps
+    whole stays, one that it cuts where the split does not fall (8 kv
+    heads of a dim split 16 ways) is gathered first on its mesh dims; its
+    gradient likewise."""
+    if not is_dtensor(t):
+        return t.reshape(*shape)
+    if -1 in shape:
+        i = shape.index(-1)
+        rest = math.prod(n for j, n in enumerate(shape) if j != i)
+        shape = shape[:i] + (t.numel() // rest,) + shape[i + 1:]
+    return _DReshape.apply(t, tuple(shape))
+
+
+def pad_seq(t: torch.Tensor, before: int, after: int) -> torch.Tensor:
+    """``t`` [B, S, ...] padded with zeros along dim 1.  A DTensor pads on
+    each rank's shard (``local_map``; activations never split their
+    sequence dim), so no DTensor padding strategy is involved."""
+    pad = [0, 0] * (t.dim() - 2) + [before, after]
+    if not is_dtensor(t):
+        return torch.nn.functional.pad(t, pad)
+    pl = whole(t.placements)
+    return on_shards(lambda x: torch.nn.functional.pad(x, pad), pl, (pl,),
+                     t.device_mesh)(t)
+
+
+def _mesh_matmul(a2: torch.Tensor, b: torch.Tensor,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """``a2 [M, K] @ b [K, N]`` of DTensors, on local shards: the
+    activation keeps its layout and the weight moves.  On each mesh dim:
+    rows split -> the weight whole there (an FSDP gather), the output's
+    rows split; the weight's columns split -> the output's columns split;
+    the contraction split (either operand) -> both split along it and a
+    partial sum, reduced at once (a row-parallel all-reduce).  A partial
+    activation is reduced first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dm = a2.device_mesh
+    ap, bp, out, ga, gb, partial = [], [], [], [], [], False
+    for x, w in zip(whole(a2.placements), b.placements):
+        if x == Shard(0):
+            ap.append(x), bp.append(Replicate()), out.append(x)
+            ga.append(x), gb.append(Partial())
+        elif x == Shard(1) or w == Shard(0):
+            ap.append(Shard(1)), bp.append(Shard(0)), out.append(Partial())
+            ga.append(Shard(1)), gb.append(Shard(0))
+            partial = True
+        elif w == Shard(1):
+            ap.append(Replicate()), bp.append(w), out.append(w)
+            ga.append(Partial()), gb.append(w)
+        else:
+            ap.append(Replicate()), bp.append(Replicate())
+            out.append(Replicate()), ga.append(Replicate())
+            gb.append(Replicate())
+    y = on_shards(lambda x, w: _local_matmul(x, w, out_dtype), out,
+                  (ap, bp), dm, grads=(ga, gb))(a2, b)
+    return y.redistribute(dm, whole(y.placements)) if partial else y
+
+
+def _local_matmul(a2: torch.Tensor, b: torch.Tensor,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    if _in_fp32(a2, b):
+        return (a2.float() @ b.float()).to(out_dtype)
+    if out_dtype == torch.float32:
+        return _F32Product.apply(a2, b)
+    return (a2 @ b).to(out_dtype)
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor,
            out_dtype: torch.dtype) -> torch.Tensor:
     """``a [..., K] @ b [K, N] -> [..., N]`` in ``out_dtype``, fp32
-    accumulation (``preferred_element_type=float32`` and a cast)."""
+    accumulation (``preferred_element_type=float32`` and a cast).  On
+    DTensors the product runs on local shards (``_mesh_matmul``)."""
     lead = a.shape[:-1]
-    a2 = a.reshape(-1, a.shape[-1])
-    if _in_fp32(a, b):
-        out = (a2.float() @ b.float()).to(out_dtype)
-    elif out_dtype == torch.float32:
-        out = _F32Product.apply(a2, b)
-    else:
-        out = (a2 @ b).to(out_dtype)
-    return out.reshape(*lead, b.shape[-1])
+    a2 = reshape(a, -1, a.shape[-1])
+    if is_dtensor(a2) and is_dtensor(b):
+        return reshape(_mesh_matmul(a2, b, out_dtype), *lead, b.shape[-1])
+    return _local_matmul(a2, b, out_dtype).reshape(*lead, b.shape[-1])
 
 
 def bmatmul(a: torch.Tensor, b: torch.Tensor,
@@ -104,9 +232,9 @@ def contract(x: torch.Tensor, w: torch.Tensor, n: int,
     """Contract the last ``n`` dims of ``x`` with the first ``n`` of ``w``
     (``"bsd,dhk->bshk"`` is ``n=1``, ``"bshk,hkd->bsd"`` is ``n=2``)."""
     k = math.prod(w.shape[:n])
-    out = matmul(x.reshape(*x.shape[:x.dim() - n], k),
-                 w.reshape(k, -1), out_dtype)
-    return out.reshape(*x.shape[:x.dim() - n], *w.shape[n:])
+    out = matmul(reshape(x, *x.shape[:x.dim() - n], k),
+                 reshape(w, k, -1), out_dtype)
+    return reshape(out, *x.shape[:x.dim() - n], *w.shape[n:])
 
 
 # ---------------------------------------------------------------------------
@@ -226,14 +354,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     kg, vg = _gqa(k, rep), v.repeat_interleave(rep, dim=2).transpose(1, 2)
     qh = q.float().transpose(1, 2)                           # [B,H,Sq,D]
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    out = []
     for q0 in range(0, Sq, q_chunk):
         qb = qh[:, :, q0:q0 + q_chunk]
         nq = qb.shape[2]
         qpos = q_offset + torch.arange(q0, q0 + nq, device=dev)
-        m = torch.full((B, H, nq), -1e30, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, H, nq), dtype=torch.float32, device=dev)
-        o = torch.zeros((B, H, nq, D), dtype=torch.float32, device=dev)
+        # the running state laid out as the chunk is (a DTensor on a mesh)
+        m = torch.full_like(qb[..., 0], -1e30)
+        l = torch.zeros_like(qb[..., 0])
+        o = torch.zeros_like(qb)
         for k0 in range(0, Skv, kv_chunk):
             kb = kg[:, :, k0:k0 + kv_chunk]
             vb = vg[:, :, k0:k0 + kv_chunk]
@@ -250,8 +379,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             o = o * corr[..., None] + pv
             m = m_new
         norm = torch.clamp(l, min=1e-30)[..., None]
-        out[:, q0:q0 + nq] = (o / norm).transpose(1, 2).to(q.dtype)
-    return out
+        out.append((o / norm).transpose(1, 2).to(q.dtype))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True) -> torch.Tensor:
+    """``flash_attention``; on DTensors, on each rank's local shards
+    (``local_map``): batch rows as q's, q's heads split over the tensor-
+    parallel mesh dim where they divide, k / v whole there.  Each rank
+    takes the kv head of each of its query heads (GQA) by index, so the
+    backward's kv gradient is a partial sum over the head-split dim."""
+    if not is_dtensor(q):
+        return flash_attention(q, k, v, causal=causal)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dm = q.device_mesh
+    H, Hkv = q.shape[2], k.shape[2]
+    rep = H // Hkv
+    qp, kvp, kvg, split = [], [], [], None
+    for m, pl in enumerate(q.placements):
+        if pl == Shard(0):
+            qp.append(pl), kvp.append(pl), kvg.append(pl)
+        elif split is None and H % dm.size(m) == 0 and dm.size(m) > 1:
+            split = m
+            qp.append(Shard(2)), kvp.append(Replicate())
+            kvg.append(Partial())
+        else:
+            qp.append(Replicate()), kvp.append(Replicate())
+            kvg.append(Replicate())
+
+    def local(ql, kl, vl):
+        if split is not None:
+            n = ql.shape[2]
+            heads = dm.get_local_rank(split) * n + torch.arange(
+                n, device=ql.device)
+            idx = torch.div(heads, rep, rounding_mode="floor")
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return flash_attention(ql, kl, vl, causal=causal)
+
+    return on_shards(local, qp, (qp, kvp, kvp), dm,
+                     grads=(qp, kvg, kvg))(q, k, v)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -318,7 +485,7 @@ def attention_fwd(p: PyTree, x: torch.Tensor, positions: torch.Tensor, *,
         cos, sin = rotary_embedding(positions, q.shape[-1])
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
-    o = flash_attention(q, k, v, causal=causal and kv_override is None)
+    o = attend(q, k, v, causal=causal and kv_override is None)
     return contract(o, p["wo"], 2, x.dtype)
 
 
@@ -382,7 +549,39 @@ def build_embedding(pb: ParamBuilder, vocab: int, d_model: int) -> PyTree:
 
 
 def embed_fwd(p: PyTree, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens.long()]
+    """The table's rows at ``tokens``.  A DTensor table gathers on each
+    rank's shards (``local_map``): a rank whose vocab slice holds a token
+    gives its row, the others zeros, summed over the vocab split (a
+    partial sum; no gather of the table); a split of the embed dim (FSDP)
+    is gathered first."""
+    table = p["table"]
+    if not is_dtensor(table):
+        return table[tokens.long()]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dm = table.device_mesh
+    tok, tab, grad, out, split = [], [], [], [], None
+    for m, tp in enumerate(tokens.placements):
+        if table.placements[m] == Shard(0) and split is None:
+            split = m
+            tok.append(Replicate()), tab.append(Shard(0))
+            grad.append(Shard(0)), out.append(Partial())
+        elif tp == Shard(0):
+            tok.append(tp), tab.append(Replicate())
+            grad.append(Partial()), out.append(tp)
+        else:
+            tok.append(Replicate()), tab.append(Replicate())
+            grad.append(Replicate()), out.append(Replicate())
+
+    def local(tb, tk):
+        n = tb.shape[0]
+        off = 0 if split is None else dm.get_local_rank(split) * n
+        idx = tk.long() - off
+        inside = ((idx >= 0) & (idx < n))[..., None]
+        rows = tb[idx.clamp(0, n - 1)]
+        return torch.where(inside, rows, torch.zeros_like(rows))
+
+    return on_shards(local, out, (tab, tok), dm,
+                     grads=(grad, tok))(table, tokens)
 
 
 def unembed_fwd(p: PyTree, x: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ParamBuilder, matmul
+from repro_torch.parallel.sharding import is_dtensor, on_shards, whole
 
 PyTree = Any
 
@@ -67,12 +68,27 @@ def _in_conv(p: PyTree, x: torch.Tensor):
     d_inner = p["conv_w"].shape[1]
     ug = matmul(x, p["in_proj"], x.dtype)
     u, z = ug[..., :d_inner], ug[..., d_inner:]
-    upad = F.pad(u, (0, 0, D_CONV - 1, 0))
-    conv = 0
-    for i in range(D_CONV):
-        conv = conv + upad[:, i:i + S] * p["conv_w"][i][None, None]
-    conv = conv + p["conv_b"][None, None]
-    uc = F.silu(conv.float()).to(x.dtype)
+
+    def conv_silu(u_, w, b):
+        upad = F.pad(u_, (0, 0, D_CONV - 1, 0))
+        conv = 0
+        for i in range(D_CONV):
+            conv = conv + upad[:, i:i + S] * w[i][None, None]
+        conv = conv + b[None, None]
+        return F.silu(conv.float()).to(x.dtype)
+
+    if not is_dtensor(u):
+        return u, conv_silu(u, p["conv_w"], p["conv_b"]), z
+    # on local shards: the conv is depthwise, over the batch and inner
+    # dims the mesh splits (its weights split with the inner dim)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    pl = whole(u.placements)
+    wp = [Shard(1) if q == Shard(2) else Replicate() for q in pl]
+    bp = [Shard(0) if q == Shard(2) else Replicate() for q in pl]
+    wg = [Partial() if q == Shard(0) else w_ for q, w_ in zip(pl, wp)]
+    bg = [Partial() if q == Shard(0) else b_ for q, b_ in zip(pl, bp)]
+    uc = on_shards(conv_silu, pl, (pl, wp, bp), u.device_mesh,
+                   grads=(pl, wg, bg))(u, p["conv_w"], p["conv_b"])
     return u, uc, z
 
 
@@ -85,6 +101,29 @@ def _scan(a: torch.Tensor, bu: torch.Tensor, h: torch.Tensor):
     return hs, h
 
 
+def _scan_read(a: torch.Tensor, bu: torch.Tensor, Cmat: torch.Tensor):
+    """``_scan`` from a zero state, read out through ``Cmat``: (y [B,S,di]
+    before the skip and gate, h_S).  On DTensors it runs on each rank's
+    shards (``local_map``): the recurrence is elementwise over the batch
+    and inner dims that the mesh splits, so no rank needs another's."""
+    def run(a_, bu_, c_):
+        h0 = torch.zeros((a_.shape[0], a_.shape[2], a_.shape[3]),
+                         dtype=torch.float32, device=a_.device)
+        hs, hT = _scan(a_, bu_, h0)
+        return torch.einsum("bsin,bsn->bsi", hs, c_), hT
+
+    if not is_dtensor(a):
+        return run(a, bu, Cmat)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    pl = whole(a.placements)
+    last = [Shard(q.dim - 1) if isinstance(q, Shard) and q.dim > 1 else q
+            for q in pl]
+    cp = [q if q == Shard(0) else Replicate() for q in pl]
+    cg = [Partial() if q == Shard(2) else c_ for q, c_ in zip(pl, cp)]
+    return on_shards(run, (pl[:], last), (pl, pl, cp), a.device_mesh,
+                     grads=(pl, pl, cg))(a, bu, Cmat)
+
+
 def _mamba(p: PyTree, x: torch.Tensor):
     """Full-sequence forward: (y [B,S,d], terminal state h, u before the
     conv)."""
@@ -92,10 +131,7 @@ def _mamba(p: PyTree, x: torch.Tensor):
     d_inner = p["conv_w"].shape[1]
     u0, u, z = _in_conv(p, x)
     a, bu, Cmat = _ssm_inputs(p, u)
-    h0 = torch.zeros((B, d_inner, D_STATE), dtype=torch.float32,
-                     device=x.device)
-    hs, hT = _scan(a, bu, h0)
-    y = torch.einsum("bsin,bsn->bsi", hs, Cmat)
+    y, hT = _scan_read(a, bu, Cmat)
     y = y + p["d_skip"][None, None] * u.float()
     y = y * F.silu(z.float())
     return matmul(y.to(x.dtype), p["out_proj"], x.dtype), hT, u0

@@ -21,7 +21,9 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamBuilder, matmul
+from repro_torch.models.layers import (ParamBuilder, matmul, pad_seq,
+                                       reshape)
+from repro_torch.parallel.sharding import is_dtensor, on_shards, whole
 
 PyTree = Any
 
@@ -63,7 +65,7 @@ def _projections(p: PyTree, x: torch.Tensor, x_prev: torch.Tensor):
     f32 = torch.float32
     delta = (x_prev - x).float()
     lora = matmul(x.float(), p["mix_lora_a"].float(), f32)
-    lora = torch.tanh(lora).reshape(B, S, 5, LORA_R)
+    lora = reshape(torch.tanh(lora), B, S, 5, LORA_R)
     dyn = torch.einsum("bsfr,frd->bsfd", lora,
                        p["mix_lora_b"].float())                # [B,S,5,d]
     mix = p["mix"][None, None] + dyn                           # [B,S,5,d]
@@ -93,13 +95,35 @@ def _wkv(r, k, v, decay, u, S0):
     return outs, Sst
 
 
+def _wkv_from_zero(r, k, v, decay, u):
+    """``_wkv`` from a zero state.  On DTensors it runs on each rank's
+    shards (``local_map``): the recurrence is elementwise over the batch
+    and the heads that the mesh splits; ``u``'s gradient sums over a
+    batch split."""
+    def run(r_, k_, v_, d_, u_):
+        B, _, H, D = r_.shape
+        S0 = torch.zeros((B, H, D, D), dtype=torch.float32, device=r_.device)
+        return _wkv(r_, k_, v_, d_, u_, S0)
+
+    if not is_dtensor(r):
+        return run(r, k, v, decay, u)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    pl = whole(r.placements)
+    state = [Shard(q.dim - 1) if isinstance(q, Shard) and q.dim > 1 else q
+             for q in pl]
+    up = [Shard(0) if q == Shard(2) else Replicate() for q in pl]
+    ug = [Partial() if q == Shard(0) else p_ for q, p_ in zip(pl, up)]
+    return on_shards(run, (pl, state), (pl, pl, pl, pl, up), r.device_mesh,
+                     grads=(pl, pl, pl, pl, ug))(r, k, v, decay, u)
+
+
 def _group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                 groups: int) -> torch.Tensor:
     B, S, d = x.shape
-    xg = x.reshape(B, S, groups, d // groups).float()
+    xg = reshape(x, B, S, groups, d // groups).float()
     mu = xg.mean(dim=-1, keepdim=True)
     var = xg.var(dim=-1, keepdim=True, correction=0)
-    y = ((xg - mu) * torch.rsqrt(var + 1e-5)).reshape(B, S, d)
+    y = reshape((xg - mu) * torch.rsqrt(var + 1e-5), B, S, d)
     return y * w.float() + b.float()
 
 
@@ -107,14 +131,12 @@ def _rwkv6(p: PyTree, x: torch.Tensor):
     """Full-sequence forward: (y [B,S,d], final wkv state)."""
     B, S, d = x.shape
     H = d // HEAD_DIM
-    x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    x_prev = pad_seq(x, 1, 0)[:, :-1]
     r, k, v, g, decay = _projections(p, x, x_prev)
-    heads = lambda a: a.reshape(B, S, H, HEAD_DIM)   # noqa: E731
-    u = p["u_bonus"].reshape(H, HEAD_DIM)
-    S0 = torch.zeros((B, H, HEAD_DIM, HEAD_DIM), dtype=torch.float32,
-                     device=x.device)
-    out, ST = _wkv(heads(r), heads(k), heads(v), heads(decay), u, S0)
-    out = out.reshape(B, S, d) * F.silu(g)                      # gated
+    heads = lambda a: reshape(a, B, S, H, HEAD_DIM)   # noqa: E731
+    u = reshape(p["u_bonus"], H, HEAD_DIM)
+    out, ST = _wkv_from_zero(heads(r), heads(k), heads(v), heads(decay), u)
+    out = reshape(out, B, S, d) * F.silu(g)                      # gated
     out = _group_norm(out, p["ln_w"], p["ln_b"], H)
     return matmul(out.to(x.dtype), p["wo"], x.dtype), ST
 
@@ -142,11 +164,11 @@ def rwkv6_decode(p: PyTree, x: torch.Tensor, cache: Dict[str, torch.Tensor]
     B, _, d = x.shape
     H = d // HEAD_DIM
     r, k, v, g, decay = _projections(p, x, cache["shift"].to(x.dtype))
-    heads = lambda a: a.reshape(B, 1, H, HEAD_DIM)   # noqa: E731
-    u = p["u_bonus"].reshape(H, HEAD_DIM)
+    heads = lambda a: reshape(a, B, 1, H, HEAD_DIM)   # noqa: E731
+    u = reshape(p["u_bonus"], H, HEAD_DIM)
     out, S_new = _wkv(heads(r), heads(k), heads(v), heads(decay), u,
                       cache["wkv"])
-    out = out.reshape(B, 1, d) * F.silu(g)
+    out = reshape(out, B, 1, d) * F.silu(g)
     out = _group_norm(out, p["ln_w"], p["ln_b"], H)
     y = matmul(out.to(x.dtype), p["wo"], x.dtype)
     return y, {"shift": x.to(cache["shift"].dtype), "wkv": S_new}

@@ -23,14 +23,17 @@ reference's ``jax.checkpoint`` around each rep of the scan: ``"none"``
 saves everything, ``"full"`` recomputes each rep's body in the backward
 pass, and ``"dots"`` (``dots_with_no_batch_dims_saveable``) saves the
 outputs of the 2-D weight products and recomputes the rest, the batched
-products (attention, the MoE experts) included.  The stacked params are
+products (attention, the MoE experts) included. The stacked params are
 split into reps once a forward (``torch.unbind``), so each leaf gets one
-stacked gradient.  The reference's sharding context ``cs`` is a sharding
-concern the port does not take; ``decode_step`` takes its
-``decode_attn_fn``.  Its quirks are kept: ``forward`` runs rotary at the
-default theta (``layers.attention_fwd``), while ``prefill`` and
-``decode_step`` use ``rope_theta``; decode's MoE runs at capacity factor
-8.
+stacked gradient. ``forward``, ``loss_fn``, ``prefill``, ``decode_step``
+and the block body take the reference's sharding context ``cs``
+(``parallel.sharding.make_constraint_fn``) at the reference's call
+sites: on a mesh with a ``device_mesh`` the params and inputs are
+DTensors and ``cs`` lays the activations out by the policy; with
+``cs=None`` nothing changes. ``decode_step`` takes ``decode_attn_fn``.
+Its quirks are kept: ``forward`` runs rotary at the default theta
+(``layers.attention_fwd``), while ``prefill`` and ``decode_step`` use
+``rope_theta``; decode's MoE runs at capacity factor 8.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
+from repro_torch.parallel.sharding import is_dtensor, on_shards, whole
 
 PyTree = Any
 
@@ -253,24 +257,26 @@ def _apply_mixer(kind: str, p: PyTree, x: torch.Tensor,
 
 
 def _ffn(cfg: ModelConfig, ffn: str, p: PyTree, h: torch.Tensor,
-         capacity_factor: float):
+         capacity_factor: float, cs=None):
     """(y, aux) of a position's FFN."""
     if ffn == "moe":
         return MOE.moe_fwd(p, h, top_k=cfg.moe_top_k,
-                           capacity_factor=capacity_factor)
+                           capacity_factor=capacity_factor, cs=cs)
     return L.mlp_fwd(p, h), 0.0
 
 
 def _block_body(cfg: ModelConfig, pattern, carry, block_params, positions,
-                causal=True):
+                causal=True, cs=None):
     x, aux = carry
     for (mixer, ffn), p in zip(pattern, block_params):
         h = L.rms_norm(x, p["ln1"])
         x = x + _apply_mixer(mixer, p["mixer"], h, positions, causal)
         h = L.rms_norm(x, p["ln2"])
-        y, a = _ffn(cfg, ffn, p["ffn"], h, cfg.capacity_factor)
+        y, a = _ffn(cfg, ffn, p["ffn"], h, cfg.capacity_factor, cs)
         aux = aux + a
         x = x + y
+        if cs is not None:
+            x = cs(x, "btd")
     return x, aux
 
 
@@ -303,13 +309,13 @@ def _remat(cfg: ModelConfig, body):
 def _run_stack(cfg: ModelConfig, blocks: Sequence[PyTree], x: torch.Tensor,
                positions: torch.Tensor, *, causal: bool = True,
                pattern=None, cross: Optional[PyTree] = None,
-               enc_out: Optional[torch.Tensor] = None):
+               enc_out: Optional[torch.Tensor] = None, cs=None):
     """Run the stacked super-blocks, rep by rep. Returns (x, aux_loss)."""
     pattern = pattern or cfg.pattern()
 
     def body(x, aux, block_params, cross_p):
         x, aux = _block_body(cfg, pattern, (x, aux), block_params,
-                             positions, causal)
+                             positions, causal, cs)
         if cross_p is not None:                       # whisper cross-attn
             h = L.rms_norm(x, cross_p["ln"])
             x = x + L.attention_fwd(cross_p["attn"], h, positions,
@@ -331,17 +337,18 @@ def _frontend(params: PyTree, extra: torch.Tensor,
     return L.matmul(extra.to(dtype), params["frontend"]["proj"], dtype)
 
 
-def _encode(cfg: ModelConfig, params: PyTree, f: torch.Tensor
+def _encode(cfg: ModelConfig, params: PyTree, f: torch.Tensor, cs=None
             ) -> torch.Tensor:
     """Whisper's bidirectional encoder over projected frames ``f``."""
     fpos = torch.arange(f.shape[1], device=f.device)[None]
     enc_out, _ = _run_stack(cfg, params["encoder"]["blocks"], f, fpos,
-                            causal=False, pattern=[("attention", "mlp")])
+                            causal=False, pattern=[("attention", "mlp")],
+                            cs=cs)
     return L.rms_norm(enc_out, params["encoder"]["final_ln"])
 
 
 def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
-            extra_embeds: Optional[torch.Tensor] = None
+            extra_embeds: Optional[torch.Tensor] = None, cs=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward. tokens [B,S] -> (logits [B,S,V] fp32, aux_loss).
 
@@ -359,31 +366,117 @@ def forward(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     elif cfg.family == "audio":
         assert extra_embeds is not None
         enc_out = _encode(cfg, params,
-                          _frontend(params, extra_embeds, x.dtype))
+                          _frontend(params, extra_embeds, x.dtype), cs)
 
     positions = torch.arange(x.shape[1], device=x.device)[None]
+    if cs is not None:
+        x = cs(x, "btd")
     x, aux = _run_stack(cfg, params["blocks"], x, positions,
-                        cross=params.get("cross"), enc_out=enc_out)
+                        cross=params.get("cross"), enc_out=enc_out, cs=cs)
     x = L.rms_norm(x, params["final_ln"])
     if n_prefix:
         x = x[:, n_prefix:]
-    return L.unembed_fwd(params["embed"], x), aux
+    logits = L.unembed_fwd(params["embed"], x)
+    if cs is not None:
+        logits = cs(logits, "btv")
+    return logits, aux
 
 
 def loss_fn(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
-            labels: torch.Tensor, extra_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            labels: torch.Tensor, extra_embeds: Optional[torch.Tensor] = None,
+            cs=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy + z-loss + MoE aux: ``(total, parts)``,
     differentiable in ``params`` (``train.step`` takes its gradient)."""
-    logits, aux = forward(cfg, params, tokens, extra_embeds)
+    logits, aux = forward(cfg, params, tokens, extra_embeds, cs=cs)
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    lse = _pinned(_logsumexp(logits))
+    gold = _pinned(_gold(logits, labels))
     ce = torch.mean(lse - gold)
     z_loss = 1e-4 * torch.mean(lse ** 2)
     moe_loss = 1e-2 * aux / max(cfg.n_layers, 1)
     total = ce + z_loss + moe_loss
     return total, {"ce": ce, "z": z_loss, "moe": moe_loss}
+
+
+class _Pin(torch.autograd.Function):
+    """The identity, whose backward lays the gradient out as the forward
+    value was (a scalar loss's gradient arrives whole on every rank; laid
+    out by the batch split at once, the vocab-split logits' backward never
+    gathers)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements = t.device_mesh, tuple(t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (a partial sum made whole first) whose gradient comes back
+    laid out as ``t`` is."""
+    if not is_dtensor(t):
+        return t
+    return _Pin.apply(t.redistribute(t.device_mesh, whole(t.placements)))
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp`` over the vocab.  On a DTensor split along the
+    vocab every op on the [B, S, V] logits runs on local shards
+    (``local_map``): each rank's max
+    and sum of exponentials over its vocab slice, combined by two
+    all-reduces of [B, S] (the max, as a constant shift, carries no
+    gradient) rather than by gathering the logits."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    vdim = logits.dim() - 1
+    if not is_dtensor(logits) or Shard(vdim) not in logits.placements:
+        return torch.logsumexp(logits, dim=-1)     # the vocab whole
+    dm, pl = logits.device_mesh, list(logits.placements)
+
+    def reduced(op):
+        return [Partial(op) if p_ == Shard(vdim) else p_ for p_ in pl]
+
+    rest = [Replicate() if p_ == Shard(vdim) else p_ for p_ in pl]
+    m = on_shards(lambda lg: lg.detach().amax(dim=-1), (reduced("max"),),
+                  (pl,), dm)(logits)
+    m = m.redistribute(dm, rest)
+    se = on_shards(lambda lg, mm: torch.exp(lg - mm[..., None]).sum(dim=-1),
+                   (reduced("sum"),), (pl, rest), dm)(logits, m)
+    return torch.log(se.redistribute(dm, rest)) + m
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``.  A DTensor whose vocab dim is split takes
+    each rank's labels in its slice and sums over the slices (a partial
+    sum, as ``aten.embedding``'s strategy does for a vocab-split table)."""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dm, vdim = logits.device_mesh, logits.dim() - 1
+    lab, out, split = [], [], None
+    for m, pl in enumerate(logits.placements):
+        if pl == Shard(vdim):
+            split = m
+            lab.append(Replicate()), out.append(Partial())
+        elif isinstance(pl, Shard):
+            lab.append(pl), out.append(pl)
+        else:
+            lab.append(Replicate()), out.append(Replicate())
+
+    def local(lg, lb):
+        n = lg.shape[-1]
+        off = 0 if split is None else dm.get_local_rank(split) * n
+        idx = lb.long() - off
+        inside = (idx >= 0) & (idx < n)
+        g = torch.gather(lg, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        return torch.where(inside, g, torch.zeros_like(g))
+
+    return on_shards(local, out, (list(logits.placements), lab),
+                     dm)(logits, labels)
 
 
 # ---------------------------------------------------------------------------
@@ -441,7 +534,7 @@ def _rotary_qk(cfg: ModelConfig, p: PyTree, h: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
-                tokens: torch.Tensor, decode_attn_fn=None
+                tokens: torch.Tensor, cs=None, decode_attn_fn=None
                 ) -> Tuple[torch.Tensor, PyTree]:
     """One-token decode. tokens [B,1] -> (logits [B,V] fp32, new cache).
 
@@ -452,6 +545,8 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
     tensors of the same shapes.
     """
     x = L.embed_fwd(params["embed"], tokens)
+    if cs is not None:
+        x = cs(x, "b1d")
     position = cache["pos"]
     enc_out = cache.get("enc_out")
     attn_fn = decode_attn_fn or L.decode_attention
@@ -477,7 +572,7 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
                     nc[key].copy_(t)
             x = x + mx
             h = L.rms_norm(x, p["ln2"])
-            y, _ = _ffn(cfg, ffn, p["ffn"], h, 8.0)
+            y, _ = _ffn(cfg, ffn, p["ffn"], h, 8.0, cs)
             x = x + y
         if cfg.family == "audio":
             cp = _at(params["cross"], r)
@@ -494,8 +589,8 @@ def decode_step(cfg: ModelConfig, params: PyTree, cache: PyTree,
 
 
 def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
-            max_len: int, extra_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, PyTree]:
+            max_len: int, extra_embeds: Optional[torch.Tensor] = None,
+            cs=None) -> Tuple[torch.Tensor, PyTree]:
     """Process a prompt, build the decode cache, return last-token logits.
 
     Attention K/V for the prompt are recomputed per layer and written into
@@ -508,16 +603,22 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
         x = torch.cat([_frontend(params, extra_embeds, x.dtype), x], dim=1)
     elif cfg.family == "audio":
         enc_out = _encode(cfg, params,
-                          _frontend(params, extra_embeds, x.dtype))
+                          _frontend(params, extra_embeds, x.dtype), cs)
 
     St = x.shape[1]
     if St > max_len:
         raise ValueError(f"prompt of {St} positions exceeds max_len "
                          f"{max_len}")
     positions = torch.arange(St, device=x.device)[None]
+    if cs is not None:
+        x = cs(x, "btd")
     pattern = cfg.pattern()
-    cache = init_cache(cfg, params, B, max_len, dtype=x.dtype,
-                       device=x.device)
+    if getattr(cs, "device_mesh", None) is not None:
+        cache = cs.zeros_cache(init_cache(cfg, params, B, max_len,
+                                          abstract=True, dtype=x.dtype))
+    else:
+        cache = init_cache(cfg, params, B, max_len, dtype=x.dtype,
+                           device=x.device)
     for r in range(cfg.reps):
         for idx, (mixer, ffn) in enumerate(pattern):
             p = _at(params["blocks"][idx], r)
@@ -525,10 +626,10 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
             h = L.rms_norm(x, p["ln1"])
             if mixer == "attention":
                 q, k, v = _rotary_qk(cfg, p["mixer"], h, positions)
-                o = L.flash_attention(q, k, v, causal=True)
+                o = L.attend(q, k, v, causal=True)
                 mx = L.contract(o, p["mixer"]["wo"], 2, h.dtype)
-                nc["k"][:, :St] = k
-                nc["v"][:, :St] = v
+                _fill_prompt(nc["k"], k)
+                _fill_prompt(nc["v"], v)
                 nc["len"].fill_(St)
             else:
                 fill = _mamba_prefill if mixer == "mamba" else _rwkv_prefill
@@ -537,8 +638,10 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
                     nc[key].copy_(t)
             x = x + mx
             h = L.rms_norm(x, p["ln2"])
-            y, _ = _ffn(cfg, ffn, p["ffn"], h, cfg.capacity_factor)
+            y, _ = _ffn(cfg, ffn, p["ffn"], h, cfg.capacity_factor, cs)
             x = x + y
+            if cs is not None:
+                x = cs(x, "btd")
         if cfg.family == "audio":
             cp = _at(params["cross"], r)
             h = L.rms_norm(x, cp["ln"])
@@ -551,6 +654,17 @@ def prefill(cfg: ModelConfig, params: PyTree, tokens: torch.Tensor,
     if enc_out is not None:
         cache["enc_out"] = enc_out
     return logits, cache
+
+
+def _fill_prompt(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst[:, :S] = src`` (a rep's cache [B, max_len, ...], the prompt's
+    [B, S, ...]).  A DTensor cache sharded along its sequence dim takes
+    the prompt padded to ``max_len`` whole, each rank its own slots."""
+    S = src.shape[1]
+    if is_dtensor(dst):
+        dst.copy_(L.pad_seq(src.to(dst.dtype), 0, dst.shape[1] - S))
+    else:
+        dst[:, :S] = src
 
 
 def _mamba_prefill(p, x):

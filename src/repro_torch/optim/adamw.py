@@ -7,7 +7,9 @@
   fp32, and the global-norm clip runs in fp32.
 * The moments' placement is the sharding policy's
   (``parallel.sharding.Policy.opt_sharding_tree``); this module places
-  nothing.
+  nothing.  On a mesh the leaves are DTensors: the global norm sums each
+  rank's shards and all-reduces (the scalars come out replicated), and
+  each leaf's update runs on its shards.
 
 The state is a tree of tensors like the params (dicts and lists); the
 update runs leaf by leaf in plain torch, with the reference's math:
@@ -21,6 +23,8 @@ import math
 from typing import Any, List, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.parallel.sharding import is_dtensor
 
 PyTree = Any
 
@@ -76,11 +80,14 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(cfg: AdamWConfig, params: PyTree) -> AdamWState:
-    """Zero moments beside ``params`` (on their devices) and count 0."""
-    mu = tree_map(lambda p: torch.zeros(p.shape, dtype=cfg.mu_dtype,
-                                        device=p.device), params)
-    nu = tree_map(lambda p: torch.zeros(p.shape, dtype=cfg.nu_dtype,
-                                        device=p.device), params)
+    """Zero moments beside ``params`` (on their devices, laid out as they
+    are on a mesh) and count 0."""
+    mu = tree_map(lambda p: torch.zeros_like(
+        p, dtype=cfg.mu_dtype, memory_format=torch.contiguous_format),
+        params)
+    nu = tree_map(lambda p: torch.zeros_like(
+        p, dtype=cfg.nu_dtype, memory_format=torch.contiguous_format),
+        params)
     dev = tree_leaves(params)[0].device
     return AdamWState(mu=mu, nu=nu,
                       count=torch.zeros((), dtype=torch.int32, device=dev))
@@ -96,8 +103,17 @@ def abstract_state(cfg: AdamWConfig, abstract_params: PyTree) -> AdamWState:
                                         device="meta"))
 
 
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor (a partial sum, say) made whole on every rank."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
 def global_norm(tree: PyTree) -> torch.Tensor:
-    sq = sum(torch.sum(torch.square(l.float())) for l in tree_leaves(tree))
+    sq = sum(_replicated(torch.sum(torch.square(l.float())))
+             for l in tree_leaves(tree))
     return torch.sqrt(sq)
 
 

@@ -19,9 +19,18 @@ A spec is a ``PartitionSpec``: a tuple with one entry a tensor dim, each a
 mesh-axis name, a tuple of names or ``None``.  The policy reads only a
 mesh's ``axis_names`` and ``shape`` (``launch.mesh.ModelMesh``, or any
 object with both), so every mesh shape can be reasoned about without its
-devices.  Placing tensors by these specs on a mesh of more than one
-device (DTensor redistribution) is not ported yet: ``make_constraint_fn``
-is the identity on a one-device mesh and refuses a larger one.
+devices.
+
+Placement.  On a ``ModelMesh`` with a ``device_mesh`` (a process group
+exists), a spec becomes DTensor placements (``to_placements``: a dim named
+by a mesh axis is ``Shard(dim)`` on that mesh dim, a tuple of axes shards
+the dim over several mesh dims in mesh order, the rest, and any mesh dim
+of size 1, ``Replicate()``);
+``place`` / ``place_tree`` distribute tensors by specs, and
+``make_constraint_fn``'s ``cs(x, kind)`` redistributes a DTensor to its
+fitted activation spec (the reference's ``with_sharding_constraint``).
+Without a ``device_mesh`` the tensors are plain and ``cs`` is the
+identity.
 """
 from __future__ import annotations
 
@@ -29,11 +38,11 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import torch
+
 from repro_torch.launch.mesh import INDEX_AXIS, dp_axes, dp_size
 
 TP_LOGICAL = ("vocab", "ffn", "heads", "inner")
-NOT_PORTED = ("placing tensors across a mesh of more than one device is "
-              "not ported yet (ROADMAP item 13b)")
 
 
 class PartitionSpec(tuple):
@@ -297,26 +306,190 @@ def fitted_spec(spec: P, shape: Tuple[int, ...], mesh) -> P:
                for i, ax in enumerate(spec)))
 
 
-def make_constraint_fn(policy: Policy, mesh, global_batch: int):
-    """The ``cs(x, kind)`` hook of the reference's model code.
+def to_placements(spec: P, device_mesh) -> list:
+    """DTensor placements of ``spec`` on ``device_mesh`` (its
+    ``mesh_dim_names`` are the axis names): ``Shard(dim)`` on each mesh dim
+    named for tensor dim ``dim`` (a tuple entry names several, which split
+    the dim in mesh order, as the reference's ``P(("pod", "data"))``
+    does), ``Replicate()`` on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(device_mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, ax in enumerate(spec):
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            # a split over one device is no split
+            if a is not None and device_mesh.size(names.index(a)) > 1:
+                out[names.index(a)] = Shard(dim)
+    return out
 
-    ``cs.spec(x, kind)`` is the shape-fitted spec ``x`` would be
-    constrained to (e.g. 32 MoE experts on a 16-wide EP axis still shard;
-    6 experts would not).  On a one-device mesh ``cs`` is the identity;
-    on a larger one it raises ``NotImplementedError`` (ROADMAP item 13b).
-    Carries ``moe_groups`` (the DP degree) and ``moe_mode``."""
-    single = mesh_size(mesh) == 1
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def whole(placements) -> list:
+    """``placements`` with each partial sum reduced (``Replicate``)."""
+    from torch.distributed.tensor import Partial, Replicate
+    return [Replicate() if isinstance(p, Partial) else p for p in placements]
+
+
+def on_shards(fn, out, ins, device_mesh, grads=None):
+    """``fn``, a function of local tensors, as one of DTensors
+    (``local_map``): each input is redistributed to its placements in
+    ``ins``, ``fn`` runs on the rank's shards, its outputs are laid out as
+    ``out``, and the inputs' gradients as ``grads`` (default: as ``ins``).
+    Every op of the model plane that DTensor has no strategy for, or
+    would run by gathering, goes through here with its layout stated."""
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(fn, out_placements=out, in_placements=ins,
+                     in_grad_placements=grads, device_mesh=device_mesh,
+                     redistribute_inputs=True)
+
+
+def _aligned_dim(shape_in, dim: int, shape_out, k: int):
+    """The dim of ``shape_out`` that a split of ``shape_in``'s ``dim`` into
+    ``k`` even parts stays, a split into ``k`` even parts, under a reshape;
+    ``None`` where there is none.  It exists where some output dim starts
+    at the same flat offset as ``dim`` (equal products of the dims before)
+    and both sizes divide by ``k``: each part is then one contiguous run of
+    the trailing flat index on both sides."""
+    if shape_in[dim] % k:
+        return None
+    before = math.prod(shape_in[:dim])
+    for d, n in enumerate(shape_out):
+        if math.prod(shape_out[:d]) == before and n % k == 0:
+            return d
+    return None
+
+
+def reshape_placements(t, shape):
+    """How DTensor ``t`` reshapes to ``shape`` on local shards: (the
+    placements ``t`` must have first, the result's).  A split that stays
+    aligned with the new shape (``_aligned_dim``) is kept; a split that
+    does not (8 kv heads of a dim split 16 ways) is gathered: its mesh dims
+    become ``Replicate`` in the first list, the one collective a reshape
+    may cost.  A partial sum stays one (a reshape is linear)."""
+    from torch.distributed.tensor import Replicate, Shard
+    src, dst = list(t.placements), list(t.placements)
+    dims = {p.dim for p in src if isinstance(p, Shard)}
+    for dim in dims:
+        ms = [m for m, p in enumerate(src) if p == Shard(dim)]
+        k = math.prod(t.device_mesh.size(m) for m in ms)
+        d = _aligned_dim(tuple(t.shape), dim, tuple(shape), k)
+        for m in ms:
+            src[m] = Replicate() if d is None else src[m]
+            dst[m] = Replicate() if d is None else Shard(d)
+    return src, dst
+
+
+def place(t, spec: P, mesh):
+    """``t`` laid out by ``spec`` on ``mesh.device_mesh``: a DTensor is
+    redistributed (the reference's jit resharding an argument to its
+    ``in_shardings``); a plain tensor, the same whole tensor on every
+    rank, becomes a DTensor of which each rank keeps its shard (no
+    communication).  ``t`` itself on a mesh without a ``device_mesh``."""
+    dm = getattr(mesh, "device_mesh", None)
+    if dm is None:
+        return t
+    placements = to_placements(fitted_spec(spec, tuple(t.shape), mesh), dm)
+    if is_dtensor(t):
+        return t.redistribute(dm, placements)
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, dm, placements, src_data_rank=None)
+
+
+def place_tree(tree, spec_tree, mesh):
+    """``place`` over the leaves of ``tree`` (dicts, lists, named tuples)
+    with the specs of ``spec_tree`` at the same positions."""
+    return _map(lambda t, spec: place(t, spec, mesh), tree, spec_tree)
+
+
+def zeros_tree(abstract_tree, spec_tree, mesh, device=None):
+    """Zeros shaped as ``abstract_tree``'s leaves: DTensors laid out by
+    ``spec_tree`` on ``mesh.device_mesh`` (each rank allocates only its
+    shard), or plain tensors on ``device`` without one."""
+    dm = getattr(mesh, "device_mesh", None)
+
+    def zeros(ab, spec):
+        shape = tuple(ab.shape)
+        if dm is None:
+            return torch.zeros(shape, dtype=ab.dtype, device=device)
+        from torch.distributed.tensor import zeros as dzeros
+        return dzeros(shape, dtype=ab.dtype, device_mesh=dm,
+                      placements=to_placements(
+                          fitted_spec(spec, shape, mesh), dm))
+    return _map(zeros, abstract_tree, spec_tree)
+
+
+def _all_to_all(x, m: int, src: int, dst: int):
+    """DTensor ``x`` split along dim ``src`` on mesh dim ``m``, split along
+    ``dst`` there instead: one all-to-all over the mesh dim's group (each
+    rank sends its block of every other rank's ``dst`` slice)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+    dm = x.device_mesh
+    k, group = dm.size(m), dm.get_group(m)
+
+    def local(t):
+        chunks = [c.contiguous() for c in t.chunk(k, dim=dst)]
+        send = torch.cat([c.reshape(-1) for c in chunks])
+        recv = funcol.all_to_all_single_autograd(send, None, None, group)
+        recv = funcol.wait_tensor(recv)
+        return torch.cat([r.reshape(chunks[0].shape)
+                          for r in recv.chunk(k)], dim=src)
+
+    out = list(x.placements)
+    out[m] = Shard(dst)
+    return on_shards(local, out, (list(x.placements),), dm)(x)
+
+
+def redistribute(x, placements):
+    """``x.redistribute`` to ``placements``, a move of a split from one
+    tensor dim to another on the same mesh dim taken as an all-to-all
+    (the MoE dispatch's reshards; DTensor's own takes an all-gather on a
+    CPU mesh)."""
+    from torch.distributed.tensor import Shard
+    for m, (cur, tgt) in enumerate(zip(x.placements, placements)):
+        if (isinstance(cur, Shard) and isinstance(tgt, Shard)
+                and cur.dim != tgt.dim):
+            x = _all_to_all(x, m, cur.dim, tgt.dim)
+    return x.redistribute(x.device_mesh, placements)
+
+
+def make_constraint_fn(policy: Policy, mesh, global_batch: int):
+    """The ``cs(x, kind)`` hook threaded through model code.
+
+    Shape-aware: spec entries whose mesh-axis size does not divide the dim
+    are dropped (e.g. 32 MoE experts on a 16-wide EP axis still shard; 6
+    experts would not); ``cs.spec(x, kind)`` is that fitted spec.  On a
+    mesh with a ``device_mesh``, ``cs`` redistributes the DTensor ``x`` to
+    it (the reference's ``with_sharding_constraint``: the collectives a
+    change of layout needs); without one it is the identity.  Carries
+    ``moe_groups`` (the DP degree, for the grouped MoE dispatch),
+    ``moe_mode`` and ``device_mesh``."""
+    dm = getattr(mesh, "device_mesh", None)
+
+    def spec(x, kind):
+        return fitted_spec(policy.act_spec(kind, mesh, global_batch),
+                           tuple(x.shape), mesh)
 
     def cs(x, kind):
-        if not single:
-            raise NotImplementedError(f"make_constraint_fn: {NOT_PORTED}")
-        return x
+        if dm is None:
+            return x
+        if not is_dtensor(x):
+            raise TypeError(f"cs({kind!r}): a plain tensor on a mesh with "
+                            "a device_mesh; place the step's inputs first")
+        return redistribute(x, to_placements(spec(x, kind), dm))
 
-    cs.spec = lambda x, kind: fitted_spec(
-        policy.act_spec(kind, mesh, global_batch), tuple(x.shape), mesh)
+    cs.spec = spec
+    cs.zeros_cache = lambda cache_abs: zeros_tree(
+        cache_abs, policy.cache_spec_tree(cache_abs, mesh, global_batch),
+        mesh)
     cs.moe_groups = (dp_size(mesh)
                      if global_batch % max(dp_size(mesh), 1) == 0 else 1)
     cs.moe_mode = policy.moe_mode
+    cs.device_mesh = dm
     return cs
 
 

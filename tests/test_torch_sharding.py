@@ -12,7 +12,9 @@ edited.  Compared spec for spec (as tuples):
   ``param_logical_axes``, under ``policy_for(arch)`` and ``Policy()``;
 * ``act_spec`` for every kind, ``batch_axes``, ``cache_seq_axes`` and
   ``cache_spec_tree`` on ``init_cache``'s abstract tree;
-* ``make_constraint_fn``'s ``moe_groups`` and ``moe_mode``.
+* ``make_constraint_fn``'s ``moe_groups`` and ``moe_mode`` (its ``cs``
+  is the identity on a mesh without a ``device_mesh``; placement on one
+  is ``tests/test_torch_mesh_model.py``'s).
 
 Also twins of the seven passing cases of ``tests/test_sharding.py`` and the
 ``MeshFallbackWarning`` path of ``make_production_mesh``.
@@ -119,11 +121,8 @@ def test_constraint_fn_matches_the_reference(mesh_name, ref_sharding):
                            else 1)
             assert cs.moe_groups == want_groups
             x = torch.empty((gb, 7, 64), device="meta")
-            if mesh_name == "1x1":
-                assert cs(x, "btd") is x
-            else:
-                with pytest.raises(NotImplementedError, match="13b"):
-                    cs(x, "btd")
+            # a mesh without a device_mesh holds plain tensors: identity
+            assert cs.device_mesh is None and cs(x, "btd") is x
             # the reference's shape fit: an entry whose axis size does not
             # divide the dim is dropped
             spec = cs.spec(x, "btv")

@@ -297,12 +297,15 @@ def test_input_specs_equal_the_reference():
 
 
 def test_factories_refuse_a_mesh_of_more_than_one_device():
+    """A mesh of more than one device without its ``DeviceMesh`` (no
+    process group) cannot hold a step; with one it can
+    (``tests/test_torch_mesh_model.py``)."""
     cfg = tcf.get_smoke("llama3_8b")
     mesh = ModelMesh(("data", "model"), (2, 4))
     for make, args in ((STEP.make_train_step, (4, adamw.AdamWConfig())),
                        (STEP.make_prefill_step, (4, 16, 32)),
                        (STEP.make_decode_step, (4, 32))):
-        with pytest.raises(NotImplementedError, match="item 13b"):
+        with pytest.raises(ValueError, match="needs its device_mesh"):
             make(cfg, Policy(), mesh, *args)
 
 

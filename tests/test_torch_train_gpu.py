@@ -183,7 +183,7 @@ def test_restart_bitexact_on_the_card(cuda, tmp_path):
         for step in range(5, 8):
             params, opt, m = fn(params, opt, batch(step))
             losses1.append(float(m["loss"]))
-        st = mgr.restore(5, {"params": p_abs, "opt": o_abs}, cuda)
+        st = mgr.restore(5, {"params": p_abs, "opt": o_abs}, device=cuda)
         p2, o2 = st["params"], st["opt"]
         losses2 = []
         for step in range(5, 8):
