@@ -62,6 +62,18 @@ Phases, one JSON line each:
    ``pad_shards`` with the
    in-place split, merge, watermark pass and guard, equal the CPU in every
    array, result, shard count and ``DeviceLoadStats``;
+7c. ``analysis``, the port's analysis gate (``repro_torch.analysis``):
+   the budget pass on the live ptxas report of the build (every
+   ``__global__``'s registers, spills, static and largest dynamic shared
+   memory, threads a block and resident blocks a SM, against the sm_90
+   limits and the committed ``ptxas_sm90a.txt``) and the ``sync`` pass
+   (the synchronising CUDA calls of one call of each of the 13 audited
+   entry points at their small sizes, on the mesh group above); fails
+   on any finding outside ``repro_torch/analysis/baseline.json`` and on
+   ``BUDGET-STALE``.  The full-size phases 5 and 8 each make one more
+   call of ``search_kernel`` / ``search_kernel_sharded`` under
+   sync-debug mode on their states (``syncs_per_call``), gathered in the
+   ``analysis_full_size`` line before 18;
 8. the sharded engine at the paper's size, once per variant: the same
    2^25 keys over 64 shards of 2^21 slots, 21 levels, built with
    ``build_sharded``; 2^20 uniform and 2^20 Zipf(1.2) queries through
@@ -266,6 +278,10 @@ import torch.distributed as dist  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import configs as cfgs  # noqa: E402
+from repro_torch.analysis import capture_audit as ca  # noqa: E402
+from repro_torch.analysis import kernel_budget as kb  # noqa: E402
+from repro_torch.analysis.baseline import (apply_baseline,  # noqa: E402
+                                           load_baseline)
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.convert import (flat_items, mesh_to_numpy,  # noqa: E402
                                  train_state_to_numpy)
@@ -583,6 +599,52 @@ def key_group_times(q: torch.Tensor) -> dict:
         library_ms=time_ms(lambda: torch.sort(q, stable=True), KERNEL_REPS),
         # q read once; q_sorted and perm written once
         bound_ms=q.numel() * 12 / HBM_BYTES_PER_S * 1e3)
+
+
+ANALYSIS_BASELINE = "src/repro_torch/analysis/baseline.json"
+# syncs a call of the full-size searches, by path: filled by the full-size
+# phases, printed in the analysis_full_size line
+FULL_SYNCS = {}
+
+
+def syncs_per_call(fn) -> dict:
+    """One more call of ``fn`` under sync-debug mode: its synchronising
+    CUDA calls, in all and by site of the port."""
+    torch.cuda.synchronize()
+    with ca.count_syncs() as sites:
+        fn()
+    torch.cuda.synchronize()
+    by_site = {}
+    for path, func, _ in sites:
+        by_site[f"{path}:{func}"] = by_site.get(f"{path}:{func}", 0) + 1
+    return {"syncs": len(sites), "sites": by_site}
+
+
+def analysis_check(smi: str) -> None:
+    """The budget pass on the live ptxas report and the sync pass over the
+    13 entry points (on the initialised mesh group); no finding may fall
+    outside the baseline, and the record must be today's build's."""
+    t0 = time.perf_counter()
+    budget, _, rows = kb.run_budget(live=True)
+    t_budget = time.perf_counter() - t0
+    sync_findings, syncs = ca.run_sync_audit()
+    _, new, _ = apply_baseline(budget + sync_findings,
+                               load_baseline(Path(ANALYSIS_BASELINE)))
+    stale = [f.render() for f in budget if f.rule == "BUDGET-STALE"]
+    emit({"phase": "analysis", "card": smi, "kernels": rows,
+          # of the record, which the live report equals (else stale)
+          "max_shards_under_smem": kb.max_shards_under_smem(),
+          "syncs_per_call": {name: {k: v for k, v in row.items()
+                                    if k != "sites"}
+                             for name, row in syncs.items()},
+          "sync_sites": {name: row["sites"] for name, row in syncs.items()},
+          "findings": len(budget) + len(sync_findings),
+          "new_findings": len(new), "new": [f.render() for f in new],
+          "budget_stale": stale, "budget_s": t_budget,
+          "seconds": time.perf_counter() - t0})
+    check(not stale, "the ptxas record is today's build's and equals the "
+                     "live report")
+    check(not new, "no analysis finding outside the baseline")
 
 
 def small_check() -> None:
@@ -995,6 +1057,9 @@ def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
     check(launches[name] >= 1, f"main path launched {name}")
     check(launches["group_by_key"] == len(qs),
           f"main path ran group_by_key once a {name} call")
+    syncs = {tname: syncs_per_call(lambda q=q: ops.search_kernel(st, q))
+             for tname, q in qs.items()}
+    FULL_SYNCS[f"search_kernel[{variant(foresight)}]"] = syncs
 
     wrapper, plain, source, replaces = KERNELS[name]
     tables = table_args(st)
@@ -1036,6 +1101,7 @@ def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
               "table_gb": ops.tile_bytes(FULL_LEVELS, FULL_CAP,
                                          foresight) / 1e9,
               "build_s": build_s, "search_kernel_s": search_s[tname],
+              "syncs_per_call": syncs[tname]["syncs"],
               "hits": int(res[tname].found.sum()), **rows[tname], **extra,
               "mops": q.numel() / kernel_ms / 1e3,
               "mean_path_steps": fp["steps"] / q.numel(),
@@ -1346,6 +1412,11 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
                                           f"(width {width})")
     if fat:
         check(launches["fat_resolve"] >= 1, "sharded path ran K9")
+    else:
+        syncs = {f"{name},{'clustered' if cl else 'dense'}": syncs_per_call(
+            lambda q=q, cl=cl: ops.search_kernel_sharded(shl, q, cluster=cl))
+            for name, q in qs.items() for cl in (False, True)}
+        FULL_SYNCS[f"search_kernel_sharded[{v}]"] = syncs
 
     answers = {}
     for (name, cl), r in res.items():
@@ -1401,6 +1472,8 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
               "build_s": build_s, "update_ops": SHARD_UPDATE_OPS,
               "update_s": update_s,
               "update_us_per_op": update_s / SHARD_UPDATE_OPS * 1e6}
+    if not fat:
+        report["syncs_per_call"] = {k: r["syncs"] for k, r in syncs.items()}
     sorted_keys = torch.from_numpy(keys_np).to(dev)
     rows = {}
     grouping = {"dense_ms": {}, "ungrouped_ms": {}}
@@ -3914,6 +3987,7 @@ def run_phases(smi: str, t_start: float) -> None:
     small_sharded_check()
     meshes = init_mesh_group()
     small_mesh_check(meshes)
+    analysis_check(smi)
     rng = np.random.default_rng(SEED)
     keys_np = np.sort(rng.choice(FULL_SPAN, FULL_N, replace=False))
     keys_np = keys_np.astype(np.int32)
@@ -4058,6 +4132,10 @@ def run_phases(smi: str, t_start: float) -> None:
     train_smoke_check()
     for name, n in train_full_width()["launches"].items():
         by_name[name]["launches"] += n
+    emit({"phase": "analysis_full_size", "card": smi, "n": FULL_N,
+          "batch": FULL_BATCH, "syncs_per_call": FULL_SYNCS})
+    check(len(FULL_SYNCS) == 4, "syncs counted on both variants' full-size "
+                                "search_kernel and search_kernel_sharded")
     # the dry-run's fake groups, on the host alone (no kernel of the table)
     dryrun_cells()
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})

@@ -5,10 +5,14 @@ all started together, and the objects are linked into one shared library
 (``csrc/*.cuh`` holds device code that several sources include).  The
 library has a plain C interface (no PyTorch headers), so nvcc takes
 seconds.  It lands in ``repro_torch/build/`` under a name carrying a hash
-of all the sources, headers included, and the flags, so an edit to any
-of them rebuilds it; a finished file is renamed into place, so concurrent
-first uses do not see a half-written one.  A failed build raises: there is
-no fallback.
+of all the sources, headers included, and the flags (``source_tag``), so
+an edit to any of them rebuilds it; a finished file is renamed into
+place, so concurrent first uses do not see a half-written one.  A failed
+build raises: there is no fallback.
+
+ptxas runs with ``-v``: the build writes what it reports of each kernel
+(registers, spills, stack, shared memory) beside the library
+(``ptxas_report_path``), for ``repro_torch.analysis.kernel_budget``.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,16 +82,19 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _run(procs) -> None:
-    """Wait for every (command, process); raise on the first that failed."""
-    failed = None
+def _run(procs) -> list:
+    """Wait for every (command, process); raise on the first that failed,
+    else return each one's stdout + stderr."""
+    failed, outputs = None, []
     for cmd, proc in procs:
         out, err = proc.communicate()
+        outputs.append(out + err)
         if proc.returncode != 0 and failed is None:
             failed = (f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                       f"{out}{err}")
     if failed:
         raise RuntimeError(failed)
+    return outputs
 
 
 def _start(cmd):
@@ -95,13 +102,32 @@ def _start(cmd):
                                  stderr=subprocess.PIPE, text=True)
 
 
-def compile_library() -> Path:
-    """Compile the kernels unless this exact build exists; return its path."""
-    srcs = sorted(SOURCE_DIR.glob("*.cu"))
+def source_tag() -> str:
+    """The build's hash: sha1 of the flags and of every ``csrc/*.cu*``
+    file (name and bytes), its first 12 hex digits."""
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for src in sorted(SOURCE_DIR.glob("*.cu*")):      # the headers too
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
-    tag = digest.hexdigest()[:12]
+    return digest.hexdigest()[:12]
+
+
+def ptxas_report_path(tag: str = "") -> Path:
+    """Where the build of ``tag`` (today's by default) keeps its ptxas
+    report."""
+    return BUILD_DIR / f"libtraverse-{tag or source_tag()}.ptxas.txt"
+
+
+def ptxas_header(tag: str) -> str:
+    return (f"# ptxas -v of src/repro_torch/csrc for sm_90a "
+            f"(repro_torch/kernels/_build.py)\n"
+            f"# tag {tag}: sha1 of the nvcc flags and every csrc/*.cu* "
+            f"file\n# flags {' '.join(NVCC_FLAGS)}\n")
+
+
+def compile_library() -> Path:
+    """Compile the kernels unless this exact build exists; return its path."""
+    srcs = sorted(SOURCE_DIR.glob("*.cu"))
+    tag = source_tag()
     out = BUILD_DIR / f"libtraverse-{tag}.so"
     if out.exists():
         return out
@@ -109,8 +135,14 @@ def compile_library() -> Path:
     work.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     objects = [work / f"{src.stem}.o" for src in srcs]
-    _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
-          for src, obj in zip(srcs, objects)])
+    reports = _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                            str(src)])
+                    for src, obj in zip(srcs, objects)])
+    report = ptxas_header(tag) + "".join(
+        f"## {src.name}\n{text}" for src, text in zip(srcs, reports))
+    tmp_report = work / "ptxas.txt"
+    tmp_report.write_text(report)
+    os.replace(tmp_report, ptxas_report_path(tag))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     _run([_start([nvcc, "-shared", "-o", str(tmp), *map(str, objects)])])
     os.replace(tmp, out)
