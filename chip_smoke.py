@@ -14,12 +14,21 @@ Phases, one JSON line each:
    grouping pass (``group_by_key``), which equals its plain version, and
    equals its launch on the lanes in batch order;
 4. small update check, same size: a 2000-op mixed stream through
-   ``apply_ops`` on the card equals the CPU run in every state array and
-   result (both variants) and leaves its input unchanged; K8 (grouped by
+   ``apply_ops`` on the card (the update kernel) equals the CPU run (its
+   plain version) in every state array and result (both variants) and
+   leaves its input unchanged; K8 (grouped by
    key range) equals its plain version and its batch-order launch on a
    clean, a 40%-corrupted and a lag-1 table, at the default step cap and
    at 9 steps; after an insert-only batch, lag-1 reads answer for the
    stale key set;
+4b. ``update_kernel_check``: the update kernel (``csrc/apply_ops.cu``,
+   ``kernels.apply_ops``) against its plain version, both on the card, on
+   clones of the same small states: node widths 1, 8 and 128, both
+   variants, a monolithic list filled until allocation is refused and 8
+   shards, streams with op types -1 and 3 and ``KEY_MAX``'s insert, read
+   and delete, and at B = 8 ``fat_case_stream`` on an empty list; every
+   array, the rng and every result equal; every fat case counted on the
+   card (read once, at the end) ran;
 5. the paper's configuration, once per variant: 2^25 keys drawn from
    [0, 2^26) (Synchrobench: key range twice the size), vals = keys + 1,
    27 levels, capacity 2^26, built on the card with
@@ -35,13 +44,21 @@ Phases, one JSON line each:
    grouped beforehand (``grouped_walk_ms``), and five calls are profiled
    (the pass's device time against the walk's);
 6. updates and versioned reads at the same size: the foresight build in a
-   ``VersionedIndex``, ``update`` with 1024 ops of fig3's upd=50% mix
-   (each result held against a host oracle, then the foresight invariant),
+   ``VersionedIndex``, ``update`` with 65536 ops of fig3's upd=50% mix
+   through the update kernel (each result held against a host oracle,
+   then the foresight invariant; its synchronising calls counted: none),
    on both traffics 2^20 lag-1 reads through K8 (``search(lag=1,
    use_kernel=True)``) and lag-0 reads through ``search`` and K1, held
    against the oracle, the plain K8 and ``search_validated``; K8's times
    (grouped, in batch order, the pass alone, a profile), bound, path
-   lengths and the queries its ``4L+16`` step cap cuts;
+   lengths and the queries its ``4L+16`` step cap cuts; then
+   ``update_full_size``: the same batch through the update kernel alone on
+   clones of the built state, foresight and then base (built there),
+   equal to ``update``'s state, us an op by CUDA events, the clone's ms,
+   ns a dependent step and the byte bound (the paths' distinct bytes and
+   the bytes the batch changes); its first 64 ops through the plain
+   version on the card too (three copies of the state), every array
+   equal;
 7. small sharded check (n=1500 keys in [0, 2^22), vals 3*keys, S=8,
    L=12, both variants): ``build_sharded``, ``split_shard``,
    ``merge_shards`` and ``repack`` on the card equal the CPU; on S=9 (a
@@ -68,9 +85,12 @@ Phases, one JSON line each:
    memory, threads a block and resident blocks a SM, against the sm_90
    limits and the committed ``ptxas_sm90a.txt``) and the ``sync`` pass
    (the synchronising CUDA calls of one call of each of the 13 audited
-   entry points at their small sizes, on the mesh group above); fails
-   on any finding outside ``repro_torch/analysis/baseline.json`` and on
-   ``BUDGET-STALE``.  The full-size phases 5 and 8 each make one more
+   entry points at their small sizes, on the mesh group above), and the
+   update entry points' (``VersionedIndex.update``, ``PageTable._apply``,
+   ``apply_ops_mesh``) at 8 and at 64 ops: none in the first, only the
+   in-place rebalance drivers' in the others, as many at 64 as at 8;
+   fails on any finding outside ``repro_torch/analysis/baseline.json``
+   and on ``BUDGET-STALE``.  The full-size phases 5 and 8 each make one more
    call of ``search_kernel`` / ``search_kernel_sharded`` under
    sync-debug mode on their states (``syncs_per_call``), gathered in the
    ``analysis_full_size`` line before 18;
@@ -79,9 +99,12 @@ Phases, one JSON line each:
    ``build_sharded``; 2^20 uniform and 2^20 Zipf(1.2) queries through
    ``search_kernel_sharded`` dense (K3/K4) and clustered (K5/K6),
    held against the numpy oracle, each other and the other variant; each
-   kernel against its plain version; 256 updates of fig3's upd=50% mix
-   through ``apply_ops_sharded`` against a host oracle, then the sharded
-   invariant and an unchanged input; kernel, plain, plan, end-to-end and
+   kernel against its plain version; 65536 updates of fig3's upd=50% mix
+   through ``apply_ops_sharded`` (one launch of the update kernel, one warp
+   a shard) against a host oracle, then the sharded invariant and an
+   unchanged input; the update kernel alone on clones of the stack (as in
+   6), and the first 64 ops on shards 0-7 through the plain version too;
+   kernel, plain, plan, end-to-end and
    ``torch.searchsorted`` times, bounds from a per-shard replay, path
    lengths, auto-K and the ``ndist`` histogram.  K3/K4 group their lanes
    by shard first (``group_by_shard``): the pass is held against its plain
@@ -95,7 +118,7 @@ Phases, one JSON line each:
    stack freed first): ``build_mesh_index(n_devices=1, n_shards=64)``
    equal to ``build_sharded``'s build (fingerprint); both traffics
    through ``search_kernel_mesh`` held against the oracle and the sharded
-   clustered answers (found, vals, node); 256 updates of fig3's mix
+   clustered answers (found, vals, node); 65536 updates of fig3's mix
    through ``apply_ops_mesh`` (rebalancing off) against the host oracle,
    then ``check_mesh_invariant`` and ``DeviceLoadStats``; times of the
    whole path, its exchange (route, sort, both ``all_to_all``s), its
@@ -124,7 +147,7 @@ Phases, one JSON line each:
    and timed ungrouped as in 8) and the eager ``search_sharded``; answers
    held against the numpy oracle and the scalar phases' answers, every
    kernel against its plain version, node ids dereferenced into
-   ``fat_vals``; 256 updates of fig3's upd=50%
+   ``fat_vals``; 65536 updates of fig3's upd=50%
    mix through ``apply_ops`` (B = 128 monolith) and ``apply_ops_sharded``
    against the host oracle, then ``check_fat_invariant`` and an unchanged
    input; K9 alone (``fat_resolve``, at B = 128 and 8) checked and timed
@@ -135,8 +158,9 @@ Phases, one JSON line each:
    size, once per variant: the 2^25 keys as sample keys, rows ``[2^25,
    129]`` int32 (17.3 GB) drawn on the card from a seeded generator, 64
    shards, L = 21, ``use_kernel``; two 2^20 ``DataPipeline`` batches
-   through ``get_batch`` (K5/K6), a dense ``lookup`` (K3/K4), 256 ingests
-   and 256 evictions of new keys; found, row ids, tokens, ingested and
+   through ``get_batch`` (K5/K6), a dense ``lookup`` (K3/K4), 8192
+   ingests and 8192 evictions of new keys (a batch each through the update
+   kernel); found, row ids, tokens, ingested and
    evicted keys, the sharded invariant checked, the stack's
    ``range_scan`` refused (its int32 index wraps at 64 x 21 x 2^21); then
    the monolithic store on every other key (2^24 samples, L = 26) through
@@ -146,11 +170,13 @@ Phases, one JSON line each:
 12. the paged-KV page table (``serving.kvcache``) of a card's pool, once
    per variant: 2^15 pages of 16 tokens (Llama-3-8B's KV at 64 GiB),
    ``use_kernel`` and in-place rebalancing (8 shards of 16384 slots); 8
-   prefill bursts of 9 sequences of 16 blocks through ``try_alloc``
-   under a seeded ``FaultSchedule`` at ``kvcache.alloc`` (one forced pool
-   exhaustion, one forced capacity failure), a decode lookup of every
-   block of the newest 64 sequences (1024 lanes, K5/K6) a burst,
-   ``release`` of the oldest past 64; a request past a 256-page pool
+   prefill bursts of 144 sequences of 16 blocks through ``try_alloc`` (a
+   grant a batch through the update kernel) under a seeded
+   ``FaultSchedule`` at ``kvcache.alloc`` (one forced pool exhaustion, one
+   forced capacity failure), a decode lookup of every block of the newest
+   64 sequences (1024 lanes, K5/K6) a burst, ``release`` of the oldest
+   past 1024 running, so that the pool ends half full; a request past a
+   256-page pool
    that must grant a prefix; conservation, a host dict, the sharded
    invariant and ``InvariantWatchdog`` over a stub engine checked; the
    decode lookup's time and us an alloc and a release;
@@ -245,7 +271,10 @@ Phases, one JSON line each:
    ``search_kernel_mesh`` (K10), ``group_by_shard`` (its launches on the
    four sharded main paths and the store's dense lookups) and
    ``group_by_key`` (its launches on the K1, K2, K8, fat K1/K2,
-   monolithic store and training main paths).
+   monolithic store and training main paths) and ``apply_ops``, the
+   update kernel (its launches on every update main path; its times those
+   of the monolithic 64-op batch that the plain version also ran, the
+   65536-op batch's beside them).
 
 Then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check, build or launch raises, and the script exits non-zero.
@@ -295,6 +324,7 @@ from repro_torch.data.pipeline import (DataPipeline,  # noqa: E402
                                        PipelineConfig)
 from repro_torch.data.store import IndexedSampleStore, StoreConfig  # noqa: E402,E501
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import apply_ops as ak  # noqa: E402
 from repro_torch.kernels import foresight_traverse as ft  # noqa: E402
 from repro_torch.kernels import mesh_launch as ml  # noqa: E402
 from repro_torch.kernels import shard_group as sg  # noqa: E402
@@ -328,14 +358,19 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 peak
 KERNEL_REPS, PLAIN_REPS = 20, 5
 # benchmarks/fig3_sequential.py at upd=50% (benchmarks/common.py:63-73):
-# 25% insert, 25% delete, 50% read, keys uniform over the key range
-UPDATE_OPS = 1024
+# 25% insert, 25% delete, 50% read, keys uniform over the key range; one
+# batch through the update kernel (apply_ops.cu), and its first
+# PLAIN_UPDATE_OPS through the plain host loop on the card as well
+UPDATE_OPS = 65536
+PLAIN_UPDATE_OPS = 64
+UPDATE_REPS = 2
 # The sharded configuration: S = 64, the largest shard count of
 # benchmarks/fig_shard_skew.py:37, over the same 2^25 keys: m = 2^19 keys
 # and shard_capacity_for(2^25, 64) = 2^21 slots a shard; L = 21 is
 # benchmarks/common.py:35's ceil(log2(n)) + 2 for a shard's 2^19 keys.
 SHARDS, SHARD_LEVELS = 64, 21
-SHARD_UPDATE_OPS = 256
+SHARD_UPDATE_OPS = 65536
+PLAIN_UPDATE_SHARDS = 8      # the plain comparison's shards of the stack
 ZIPF_A = 1.2             # benchmarks/common.py:55-60, YCSB-style hot keys
 # The fat configuration: fig_fat_node's acceptance width B = 128 and its
 # narrowest B = 8 (benchmarks/fig_fat_node.py:42), capacity as
@@ -370,6 +405,11 @@ KERNELS = {   # name -> (wrapper, plain version, source, TPU kernel replaced)
     # K2/K8's key-range grouping pass, the same
     "group_by_key": (sg.group_by_key, sg.group_by_key_plain, SHARD_GROUP_CU,
                      "none (a new pass; no TPU kernel)"),
+    # the write path: every writer's batch, one warp a shard
+    "apply_ops": (ak.apply_ops_batch, ak.apply_ops_batch_plain,
+                  "src/repro_torch/csrc/apply_ops.cu",
+                  "none: src/repro/core/skiplist.py:930 apply_ops, a jitted "
+                  "lax.scan (no Pallas kernel)"),
 }
 
 
@@ -620,6 +660,52 @@ def syncs_per_call(fn) -> dict:
     return {"syncs": len(sites), "sites": by_site}
 
 
+UPDATE_ENTRY_POINTS = ("VersionedIndex.update", "PageTable._apply",
+                       "apply_ops_mesh[rebalance]")
+
+
+def widened(case: tuple, n: int) -> tuple:
+    """An update entry point's case with its last three arguments (op
+    types, keys, vals) grown to ``n`` ops: its own ops, then reads of
+    other keys.  A read changes no state, so the in-place rebalance
+    drivers see the same table at any ``n`` (64 inserts would overfill
+    the mesh case's one live shard of 64 slots and add a split's reads),
+    while the kernel runs every op."""
+    *head, t, k, v = case
+    extra = n - k.numel()
+    i = torch.arange(extra, dtype=torch.int32, device=k.device)
+    return (*head, torch.cat([t, torch.full_like(i, sl.OP_READ)]),
+            torch.cat([k, k.max() + 1 + 3 * i]), torch.cat([v, i]))
+
+
+def update_syncs() -> dict:
+    """Synchronising calls of one call of each update entry point at 8 and
+    at 64 ops, after a warm-up call, by site.  ``VersionedIndex.update``
+    must make none; the other two only the in-place rebalance drivers'
+    reads (``core/rebalance_traced.py``), as many at 64 ops as at 8."""
+    out = {}
+    for ep in ca.default_entry_points():
+        if ep.name not in UPDATE_ENTRY_POINTS:
+            continue
+        fn, buckets = ep.build(torch.device(DEVICE))
+        case = next(iter(buckets.values()))[0]
+        row = {}
+        for n in (8, 64):
+            args = widened(case, n)
+            fn(*args)
+            row[n] = syncs_per_call(lambda: fn(*args))
+        out[ep.name] = row
+        check(row[8]["syncs"] == row[64]["syncs"],
+              f"{ep.name}: as many syncs at 64 ops as at 8")
+        if ep.name == "VersionedIndex.update":
+            check(row[8]["syncs"] == 0, "VersionedIndex.update makes no "
+                                        "synchronising call")
+        check(all("rebalance_traced.py" in site for r in row.values()
+                  for site in r["sites"]),
+              f"{ep.name}: every sync is a rebalance driver's")
+    return out
+
+
 def analysis_check(smi: str) -> None:
     """The budget pass on the live ptxas report and the sync pass over the
     13 entry points (on the initialised mesh group); no finding may fall
@@ -630,6 +716,7 @@ def analysis_check(smi: str) -> None:
     sync_findings, syncs = ca.run_sync_audit()
     _, new, _ = apply_baseline(budget + sync_findings,
                                load_baseline(Path(ANALYSIS_BASELINE)))
+    upd = update_syncs()
     stale = [f.render() for f in budget if f.rule == "BUDGET-STALE"]
     emit({"phase": "analysis", "card": smi, "kernels": rows,
           # of the record, which the live report equals (else stale)
@@ -638,6 +725,11 @@ def analysis_check(smi: str) -> None:
                                     if k != "sites"}
                              for name, row in syncs.items()},
           "sync_sites": {name: row["sites"] for name, row in syncs.items()},
+          "update_syncs_per_call": {name: {n: r["syncs"]
+                                           for n, r in row.items()}
+                                    for name, row in upd.items()},
+          "update_sync_sites": {name: row[64]["sites"]
+                                for name, row in upd.items()},
           "findings": len(budget) + len(sync_findings),
           "new_findings": len(new), "new": [f.render() for f in new],
           "budget_stale": stale, "budget_s": t_budget,
@@ -791,6 +883,80 @@ def small_update_check() -> None:
     emit(report)
 
 
+def kernel_check_stream(keys: np.ndarray, span: int, n: int, fill: int,
+                        seed: int):
+    """``fill`` inserts of fresh keys (past a small list's free slots),
+    ``n`` mixed ops of types -1 .. 3 (``lax.switch`` clamps them) on keys
+    half of them present, then ``KEY_MAX``'s insert, read, delete and read
+    (last: a scalar delete frees the tail's slot)."""
+    rng = np.random.default_rng(seed)
+    fresh = rng.choice(np.setdiff1d(np.arange(span), keys), fill,
+                       replace=False)
+    types = np.concatenate([np.full(fill, sl.OP_INSERT),
+                            rng.integers(-1, 4, n), [1, 0, 2, 0]])
+    ks = np.concatenate([fresh, np.where(
+        rng.random(n) < 0.5, rng.choice(keys, n), rng.integers(0, span, n)),
+        np.full(4, sl.KEY_MAX)])
+    return (types.astype(np.int32), ks.astype(np.int32),
+            (ks * 5 + 3).astype(np.int32))
+
+
+# update_kernel_check's states: (node width, keys, free node slots past
+# the build, fresh inserts); the fat lists fill their runs first
+KERNEL_CHECK_LISTS = ((1, 600, 20, 40), (8, 160, 2, 200), (128, 128, 1, 140))
+
+
+def update_kernel_check() -> None:
+    """The update kernel against its plain version, both on the card, on
+    clones of the same small states: scalar and fat (B = 8, 128), foresight
+    and base, a monolithic list filled until allocation is refused and 8
+    shards; streams with op types -1 and 3 and ``KEY_MAX``'s cases, and at
+    B = 8 ``fat_case_stream`` on an empty list.  Every array, the rng
+    included, and every result equal; each fat case counted on the card
+    (read once, at the end) ran."""
+    t0 = time.perf_counter()
+    report = {"phase": "update_kernel_check", "comparisons": 0, "ops": 0}
+    ak.reset_fat_cases(DEVICE)
+    dev = torch.device(DEVICE)
+    for width, n, free, fill in KERNEL_CHECK_LISTS:
+        keys = small_keys()[:n]
+        cap = sl.node_slots_for(n, width) + 2 + free
+        for foresight in (True, False):
+            what = f"{variant(foresight)} width {width}"
+            st = sl.build(keys, keys * 2, capacity=cap, levels=10,
+                          foresight=foresight, seed=SEED, node_width=width,
+                          device=dev)
+            cases = [(one_shard(st), route_sorted(
+                None, 1, *kernel_check_stream(keys, 1 << 22, 120, fill,
+                                              SEED + width)), "list")]
+            if width == 8:
+                empty = sl.empty(8, 6, foresight=foresight, seed=SEED,
+                                 node_width=width, device=dev)
+                cases.append((one_shard(empty), route_sorted(
+                    None, 1, *fat_case_stream(width, SEED + width)),
+                    "fat cases"))
+            shl = shd.build_sharded(keys, keys * 3, n_shards=8, levels=10,
+                                    foresight=foresight, seed=SEED,
+                                    node_width=width, device=dev)
+            cases.append((shl.shards, route_sorted(
+                shl.boundaries, 8, *kernel_check_stream(
+                    keys, 1 << 22, 160, 0, SEED + 1)), "8 shards"))
+            for stack, batch, label in cases:
+                got = plain_comparison(stack, batch, f"{what}, {label}",
+                                       fill if label == "list" else 0)
+                report["comparisons"] += 1
+                report["ops"] += batch.n
+                if label == "list":
+                    report[f"{what} refused_inserts"] = \
+                        got["refused_inserts"]
+    counts = ak.fat_cases(DEVICE)
+    report["fat_cases"] = dict(counts)
+    for case in ak.CASE_NAMES:
+        check(counts[case] > 0, f"the update kernel ran fat case {case}")
+    report["seconds"] = time.perf_counter() - t0
+    emit(report)
+
+
 def synchrobench_ops(n: int, seed: int):
     """fig3_sequential's upd=50% mix: 25% insert, 25% delete, 50% read,
     keys uniform over [0, FULL_SPAN), inserted vals = key + 1."""
@@ -819,6 +985,149 @@ def host_oracle(keys_np: np.ndarray, types, ks):
     new = [k for k, v in present.items() if v]
     current = np.union1d(np.setdiff1d(keys_np, gone), new).astype(np.int32)
     return np.array(results, np.int32), current
+
+
+# ---------------------------------------------------------------------------
+# The update kernel (apply_ops.cu) at full size: routing, times and bounds
+# ---------------------------------------------------------------------------
+
+def route_sorted(boundaries, n_shards: int, types, ks, vs):
+    """A batch as ``apply_ops_sharded`` hands it to the kernel, on the card:
+    the ops sorted by shard (stable), their shard ids, ``starts`` /
+    ``lens`` a shard; ``boundaries`` None is one shard."""
+    t, k, v = on(torch.device(DEVICE), types, ks, vs)
+    sid = (torch.zeros_like(k) if boundaries is None
+           else shd.route(boundaries, k))
+    perm = torch.argsort(sid, stable=True)
+    starts, lens = shd.shard_segments(sid[perm], n_shards)
+    return SimpleNamespace(ops=(t[perm], k[perm], v[perm]), sid=sid[perm],
+                           perm=perm, starts=starts, lens=lens, n=k.numel(),
+                           shards=int((lens > 0).sum()))
+
+
+def stack_tables(stack: sl.SkipListState):
+    """A stacked state's walk tables, leading shard axis kept."""
+    return (stack.fused,) if stack.foresight else (stack.nxt, stack.keys)
+
+
+def as_i32(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def same_on_card(a: sl.SkipListState, b: sl.SkipListState) -> bool:
+    """Every array of two states equal, compared on the card."""
+    return all(torch.equal(as_i32(x), as_i32(y)) for x, y in zip(a, b)
+               if x is not None)
+
+
+def changed_bytes(before: sl.SkipListState, after: sl.SkipListState) -> int:
+    """Bytes of ``after`` that differ from ``before``: what the batch must
+    write at least (compared in chunks of 2^28 words)."""
+    n = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    for x, y in zip(before, after):
+        if x is None:
+            continue
+        xf, yf = as_i32(x).reshape(-1), as_i32(y).reshape(-1)
+        for i in range(0, xf.numel(), 1 << 28):
+            n += (xf[i:i + (1 << 28)] != yf[i:i + (1 << 28)]).sum()
+    return int(n) * 4
+
+
+def update_bound(stack: sl.SkipListState, batch, after: sl.SkipListState
+                 ) -> dict:
+    """The batch's paths replayed on ``stack`` (each op's walk; a fat
+    split's second walk is not counted) and its byte bound: the distinct
+    bytes the paths read, the bytes the batch changes, the ops read and
+    the results written, over the card's memory rate."""
+    fp = path_footprint(stack_tables(stack), batch.ops[1], batch.sid,
+                        stack.fat_keys)
+    written = changed_bytes(stack, after)
+    total = fp["distinct_bytes"] + written + batch.n * 16
+    per_shard = torch.bincount(batch.sid.long(), weights=fp["path"].double(),
+                               minlength=batch.lens.numel())
+    return {"steps": fp["steps"], "mean_path_steps": fp["steps"] / batch.n,
+            "critical_shard_steps": int(per_shard.max()),
+            "distinct_read_bytes": fp["distinct_bytes"],
+            "written_bytes": written, "bound_bytes": total,
+            "bound_ms": total / HBM_BYTES_PER_S * 1e3}
+
+
+def event_ms(fn):
+    """(``fn()``'s result, its CUDA-event ms): one run, no warm-up (the
+    kernel changes the state it runs on)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def update_times(stack: sl.SkipListState, batch, want=None) -> tuple:
+    """The update kernel alone on ``batch`` over fresh clones of the
+    stacked ``stack`` (``UPDATE_REPS`` runs, the clone not timed), the
+    clone's own ms, ns a dependent step and the byte bound.  Every run's
+    results equal the first's (and ``want``'s).  Returns (report, the last
+    run's state, its results)."""
+    clone_ms = time_ms(lambda: sl._clone(stack), PLAIN_REPS)
+    times, first, after = [], None, None
+    for _ in range(UPDATE_REPS):
+        after = None                   # one clone at a time
+        after = sl._clone(stack)
+        res, ms = event_ms(lambda: ak.apply_ops_batch(
+            after, *batch.ops, batch.starts, batch.lens))
+        times.append(ms)
+        first = res if first is None else first
+        check(torch.equal(res, first) and (want is None or
+                                           torch.equal(res, want)),
+              "the update kernel's results equal on every run")
+    ms = statistics.median(times)
+    b = update_bound(stack, batch, after)
+    return ({"ops": batch.n, "shards_with_ops": batch.shards, "ms": ms,
+             "reps_ms": times, "us_per_op": ms * 1e3 / batch.n,
+             "clone_ms": clone_ms, **b,
+             "ns_per_step": ms * 1e6 / b["steps"],
+             "ns_per_critical_shard_step": ms * 1e6
+             / b["critical_shard_steps"],
+             "bound_share": b["bound_ms"] / ms}, after, first)
+
+
+def plain_comparison(stack: sl.SkipListState, batch, what: str,
+                     fill: int = 0) -> dict:
+    """The update kernel and its plain version (the host loop, on the
+    card) on two clones of ``stack``: every array, the rng included, and
+    every result equal; each one's time; the byte bound.  ``fill``: the
+    batch opens with that many inserts of fresh keys into one list, and
+    some must be refused for want of a slot."""
+    a, b = sl._clone(stack), sl._clone(stack)
+    res_k, ms = event_ms(lambda: ak.apply_ops_batch(
+        a, *batch.ops, batch.starts, batch.lens))
+    t0 = time.perf_counter()
+    res_p = ak.apply_ops_batch_plain(b, *batch.ops, batch.starts,
+                                     batch.lens)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((res_k - res_p).abs().max()) if batch.n else 0
+    check(err == 0 and same_on_card(a, b),
+          f"the update kernel equals its plain version on the card "
+          f"({what}: every array, the rng and the results)")
+    bound = update_bound(stack, batch, a)
+    del a, b
+    refused = int((res_k[:fill] == 0).sum())
+    check(refused > 0 or not fill, f"the list filled up ({what})")
+    return {"ops": batch.n, "shards_with_ops": batch.shards, "ms": ms,
+            "refused_inserts": refused,
+            "plain_ms": plain_ms, "us_per_op": ms * 1e3 / batch.n,
+            "plain_us_per_op": plain_ms * 1e3 / batch.n,
+            "max_abs_err": err, **bound,
+            "ns_per_step": ms * 1e6 / bound["steps"]}
+
+
+def one_shard(state: sl.SkipListState) -> sl.SkipListState:
+    """A monolithic state as a stack of one (views)."""
+    return sl.SkipListState(*(None if t is None else t[None] for t in state))
 
 
 def check_lookups(found, vals, q_np, keys_np, what: str) -> None:
@@ -909,10 +1218,12 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
                                  torch.from_numpy(keys_np + 1).to(dev),
                                  capacity=FULL_CAP, levels=FULL_LEVELS,
                                  seed=SEED, device=dev))
+    st0 = vi.current
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    update_args = on(dev, types, ks, vs)
     t0 = time.perf_counter()
-    results = vi.update(*on(dev, types, ks, vs))
+    results = vi.update(*update_args)
     torch.cuda.synchronize()
     update_s = time.perf_counter() - t0
     reads = {name: (vi.search(q, lag=1, use_kernel=True), vi.search(q, lag=0),
@@ -923,6 +1234,12 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
     lap("main_path")
     for name in ("validated_traverse", "foresight_traverse"):
         check(launches[name] >= 1, f"versioned path launched {name}")
+    check(launches["apply_ops"] == 1, "VersionedIndex.update launched the "
+                                      "update kernel once for the batch")
+    update_syncs = syncs_per_call(lambda: VersionedIndex(st0).update(
+        *update_args))
+    check(update_syncs["syncs"] == 0, "VersionedIndex.update makes no "
+                                      "synchronising call at full size")
     check(launches["group_by_key"] == 2 * len(qs),
           "versioned path ran group_by_key once a K8 and a K1 call")
 
@@ -1004,6 +1321,7 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
                                                 ("deleted", sl.OP_DELETE))},
               "build_s": build_s, "update_s": update_s,
               "update_us_per_op": update_s / UPDATE_OPS * 1e6,
+              "update_syncs_per_call": update_syncs["syncs"],
               "n_after": n_live, "lag0_hits": int(reads[name][1].found.sum()),
               "lag1_hits": int(lag1.found.sum()), **rows[name],
               **split, "group": group,
@@ -1022,9 +1340,76 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
               "stage_s": stage_s, "seconds": time.perf_counter() - t_phase})
         del fp, got, ref, lag1
-    del vi, view, fused, auth, tables, reads, live_keys
+    states = [st0, vi.current]          # the callee frees them
+    del vi, view, fused, auth, tables, reads, live_keys, st0
     torch.cuda.empty_cache()
-    return rows, launches["group_by_key"]
+    update_row = monolithic_update_kernel(keys_np, (types, ks, vs), results,
+                                          states)
+    update_row["launches"] = launches["apply_ops"]
+    return rows, launches["group_by_key"], update_row
+
+
+def monolithic_update_kernel(keys_np: np.ndarray, stream: tuple,
+                             results: torch.Tensor, states: list) -> dict:
+    """The update kernel at the paper's size, monolithic: the versioned
+    phase's batch on clones of its built state (``states``: the built
+    state and the one ``VersionedIndex.update`` made, which the kernel's
+    must equal; taken out of the list so that this frees them), the first
+    ``PLAIN_UPDATE_OPS`` ops through the plain version too (three copies
+    of the state: the built one and two clones), then the same for the
+    base variant, built here.  Emits the ``update_full_size`` line;
+    returns the kernels line's row."""
+    t0 = time.perf_counter()
+    st0, current = states
+    states.clear()
+    torch.cuda.reset_peak_memory_stats()
+    batch = route_sorted(None, 1, *stream)
+    head = route_sorted(None, 1, *(a[:PLAIN_UPDATE_OPS] for a in stream))
+    report = {"phase": "update_full_size", "layout": "monolithic",
+              "n": FULL_N, "levels": FULL_LEVELS, "capacity": FULL_CAP,
+              "op_mix": "25% insert, 25% delete, 50% read"}
+    rep, after, _ = update_times(one_shard(st0), batch, want=results)
+    check(same_on_card(after, one_shard(current)),
+          "the update kernel on a clone equals VersionedIndex.update's "
+          "state")
+    del after, current
+    torch.cuda.empty_cache()
+    rep["plain_check"] = plain_comparison(one_shard(st0), head,
+                                          "monolithic foresight")
+    report["foresight"] = rep
+    del st0
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    base = sl.build(torch.from_numpy(keys_np).to(dev),
+                    torch.from_numpy(keys_np + 1).to(dev),
+                    capacity=FULL_CAP, levels=FULL_LEVELS, seed=SEED,
+                    foresight=False, device=dev)
+    rep, after, _ = update_times(one_shard(base), batch, want=results)
+    del after
+    rep["plain_check"] = plain_comparison(one_shard(base), head,
+                                          "monolithic base")
+    report["base"] = rep
+    del base
+    torch.cuda.empty_cache()
+    report["foresight_over_base_ms"] = report["foresight"]["ms"] \
+        / report["base"]["ms"]
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    report["seconds"] = time.perf_counter() - t0
+    emit(report)
+    fg, pc = report["foresight"], report["foresight"]["plain_check"]
+    _, _, source, replaces = KERNELS["apply_ops"]
+    # the line's times are the first PLAIN_UPDATE_OPS ops', where the plain
+    # version ran on the same inputs; the whole batch's beside them
+    return {"name": "apply_ops", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": pc["max_abs_err"], "ms": pc["ms"],
+            "plain_ms": pc["plain_ms"], "bound_ms": pc["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "ops": pc["ops"],
+            "batch_ops": fg["ops"], "batch_ms": fg["ms"],
+            "batch_bound_ms": fg["bound_ms"],
+            "batch_us_per_op": fg["us_per_op"],
+            "base_batch_ms": report["base"]["ms"],
+            "clone_ms": fg["clone_ms"]}
 
 
 def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
@@ -1383,6 +1768,7 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
     count = (lambda n: f"{n}/fat") if fat else (lambda n: n)
     (types, ks, vs), want_results, current = stream
     qs = {name: torch.from_numpy(q).to(dev) for name, q in traffic.items()}
+    grouping = {"dense_ms": {}, "ungrouped_ms": {}}
     torch.cuda.reset_peak_memory_stats()
 
     # The main path, with every launch counter at 0 just before it.
@@ -1457,9 +1843,15 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
               "check_fat_invariant on every shard after the update")
     check(fingerprint(shl) == before, "apply_ops_sharded leaves its input "
                                       "unchanged")
+    check(launches["apply_ops"] == 1, "apply_ops_sharded launched the "
+                                      "update kernel once for the batch")
+    grouping["apply_ops_launches"] = launches["apply_ops"]
     del new, after_update
     torch.cuda.empty_cache()
     lap("oracle_checks")
+    upd = sharded_update_kernel(shl, stream[0], want_results,
+                                f"{v} width {width}")
+    lap("update_kernel")
 
     phase = "fat_sharded_full_size" if fat else "sharded_full_size"
     report = {"phase": phase, "variant": v, "node_width": width,
@@ -1476,7 +1868,7 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
         report["syncs_per_call"] = {k: r["syncs"] for k, r in syncs.items()}
     sorted_keys = torch.from_numpy(keys_np).to(dev)
     rows = {}
-    grouping = {"dense_ms": {}, "ungrouped_ms": {}}
+    report["update_kernel"] = upd
     for name, q in qs.items():
         sid = shd.route(shl.boundaries, q)
         plan = ops.cluster_queries(shl.boundaries, q)
@@ -1616,6 +2008,36 @@ def sharded_full_size(keys_np: np.ndarray, traffic: dict, stream: tuple,
     del shl, res, sorted_keys, qs, fatk
     torch.cuda.empty_cache()
     return list(rows.values()), answers, before, grouping
+
+
+def sharded_update_kernel(shl: shd.ShardedSkipList, stream: tuple,
+                          want: np.ndarray, what: str) -> dict:
+    """The update kernel alone on the sharded phase's batch (clones of the
+    stack, results unsorted and held against the oracle), and its first
+    ``PLAIN_UPDATE_OPS`` ops on the first ``PLAIN_UPDATE_SHARDS`` shards
+    through the plain version too (a copy of those shards and two clones:
+    three copies of the whole stack would not fit)."""
+    types, ks, vs = stream
+    batch = route_sorted(shl.boundaries, SHARDS, types, ks, vs)
+    upd, after, res_sorted = update_times(shl.shards, batch)
+    del after
+    res = torch.empty_like(res_sorted)
+    res[batch.perm] = res_sorted
+    check(np.array_equal(res.cpu().numpy(), want),
+          f"the update kernel's results equal the oracle ({what})")
+    sid = shd.route(shl.boundaries, torch.from_numpy(ks).to(DEVICE))
+    idx = np.flatnonzero(sid.cpu().numpy() < PLAIN_UPDATE_SHARDS)
+    idx = idx[:PLAIN_UPDATE_OPS]
+    sub = sl.SkipListState(*(None if t is None else
+                             t[:PLAIN_UPDATE_SHARDS].clone()
+                             for t in shl.shards))
+    head = route_sorted(shl.boundaries[:PLAIN_UPDATE_SHARDS],
+                        PLAIN_UPDATE_SHARDS, types[idx], ks[idx], vs[idx])
+    upd["plain_check"] = plain_comparison(sub, head, f"{what}, "
+                                          f"{PLAIN_UPDATE_SHARDS} shards")
+    del sub
+    torch.cuda.empty_cache()
+    return upd
 
 
 # ---------------------------------------------------------------------------
@@ -2059,15 +2481,13 @@ def small_fat_check() -> None:
             empty = {dev: sl.empty(8, 6, foresight=foresight, seed=SEED,
                                    node_width=width, device=dev)
                      for dev in (DEVICE, "cpu")}
-            sl.FAT_CASES.clear()
             new, res = sl.apply_ops(empty[DEVICE], *on(DEVICE, *stream))
-            report[f"{v}_update_cases"] = dict(sl.FAT_CASES)
-            for case in ("insert_upsert", "insert_room", "insert_split",
-                         "insert_first", "delete_plain", "delete_min",
-                         "delete_emptied"):
-                check(sl.FAT_CASES[case] > 0, f"{v} update case {case} ran")
+            sl.FAT_CASES.clear()        # the plain version counts its cases
             new_cpu, res_cpu = sl.apply_ops(empty["cpu"], *on("cpu",
                                                               *stream))
+            report[f"{v}_update_cases"] = dict(sl.FAT_CASES)
+            for case in ak.CASE_NAMES:
+                check(sl.FAT_CASES[case] > 0, f"{v} update case {case} ran")
             check(torch.equal(res.cpu(), res_cpu),
                   f"{v} fat apply_ops results, card equals CPU")
             check_same_state(new, new_cpu, f"{v} fat apply_ops state")
@@ -2229,6 +2649,8 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
     lap("main_path")
     check(launches[f"{name}/fat"] >= 1 and launches["fat_resolve"] >= 1,
           f"main path launched {name} with K9 (width {width})")
+    check(launches["apply_ops"] == (stream is not None),
+          f"the fat{width} update batch launched the update kernel once")
 
     check_lookups(res.found, res.vals, q_np, keys_np,
                   f"fat{width} search_kernel")
@@ -2266,7 +2688,8 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
     # K1/K2 + K9 group by key: the batch order too
     split = split_times(name, walk, q, fat)
     extra = {"ungrouped_ms": split["ungrouped_ms"]}
-    report.update(split, group_by_key_launches=launches["group_by_key"])
+    report.update(split, group_by_key_launches=launches["group_by_key"],
+                  apply_ops_launches=launches["apply_ops"])
     lap("timing")
     io_bytes = q.numel() * 4 * 3             # queries in, node + key out
     bytes_ms = (fp["distinct_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
@@ -2346,7 +2769,7 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
 # benchmarks/macro_store.py and examples/index_service.py drive the store;
 # StoreConfig's defaults: rows of seq_len + 1 = 129 tokens, vocab 256.
 STORE_SEQ, STORE_VOCAB, STORE_PIPE_SEED = 128, 256, 17
-STORE_UPDATES = 256          # new keys ingested, then evicted
+STORE_UPDATES = 8192         # new keys ingested, then evicted
 # The monolithic store: the store's capacity rule (next power of two of 2n
 # + 4) gives 2^27 slots at 2^25 samples, where levels * capacity passes
 # 2^31 - 1 for any L >= 16 (the reference's int32 record index); 2^24
@@ -2359,17 +2782,15 @@ SCAN_OUT = 2048
 # weights on one 80 GB card.
 PT_PAGES, PT_PAGE_TOKENS, PT_LEVELS = 2**15, 16, 16
 PT_BLOCKS = 16               # blocks a sequence: 256-token contexts
-PT_RUNNING = 64              # sequences a decode step looks up: 1024 lanes
-# The stream is cut, not the pool: an inserted page costs ~20 ms on the
-# card (the update path is a host loop, ROADMAP 7b), so 8 bursts of 9
-# sequences (2 denied by faults) admit 70, 1120 pages (3.4% of the
-# pool), and the 6 past PT_RUNNING are released, about half a minute a
-# variant (34 a burst and 256 running sequences until the dry-run cells
-# joined the script, then 17 and 128; halved twice to keep the script
-# inside its time).  Filling the pool would take ~10 minutes, so the
-# request past the pool runs on a pool of PT_PAST_POOL pages, the same
-# configuration otherwise.
-PT_PREFILL, PT_BURSTS = 9, 8     # sequences admitted a burst; bursts
+PT_RUNNING = 1024            # sequences kept live: half the pool's pages
+PT_DECODE = 64               # sequences a decode step looks up: 1024 lanes
+# 8 bursts of 144 sequences (2 denied by faults) admit 1150, 18400 pages,
+# and release the 126 past PT_RUNNING: the pool ends half full (16384 of
+# 32768 pages).  Each grant of 16 pages is one update batch through the
+# update kernel (until PR 24 a host loop at ~20 ms a page, which cut the
+# stream to 3% of the pool).  The request past the pool runs on a pool of
+# PT_PAST_POOL pages, the same configuration otherwise.
+PT_PREFILL, PT_BURSTS = 144, 8   # sequences admitted a burst; bursts
 PT_PAST_POOL = 256
 PT_FAULT_SEED = 1            # FaultSchedule.random at kvcache.alloc:
                              # pool_exhausted at burst 4, capacity_fail at 7
@@ -2475,6 +2896,8 @@ def store_full_size(keys_np: np.ndarray, rows: torch.Tensor,
     lap("main_path")
     for name in (dense, clus, "group_by_shard"):
         check(launches[name] >= 1, f"store path launched {name}")
+    check(launches["apply_ops"] == 2, "ingest and evict launched the update "
+                                      "kernel once each")
 
     for step, batch in enumerate(batches):
         check_batch(store, pipe, step, batch, f"{v} store batch {step}")
@@ -2533,7 +2956,8 @@ def store_full_size(keys_np: np.ndarray, rows: torch.Tensor,
               "evict_us_per_op": evict_s / STORE_UPDATES * 1e6,
               "range_scan": refused.split(":")[0] or "ran",
               "launches": launches_on(launches, (dense, clus,
-                                                 "group_by_shard"))}
+                                                 "group_by_shard",
+                                                 "apply_ops"))}
     report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     report["stage_s"] = dict(stage_s)
     report["seconds"] = time.perf_counter() - t_phase
@@ -2623,7 +3047,7 @@ def page_table_full_size(foresight: bool) -> tuple:
     ``try_alloc`` of ``PT_PREFILL`` new sequences of 16 blocks (a seeded
     ``FaultSchedule`` at ``kvcache.alloc`` forces a zero grant or a failed
     one), a decode step that looks up every block of the newest
-    ``PT_RUNNING`` running sequences (16 lanes each; K5/K6), and
+    ``PT_DECODE`` running sequences (16 lanes each; K5/K6), and
     ``release`` of the oldest past ``PT_RUNNING``.  Then one
     ``try_alloc`` past a pool of ``PT_PAST_POOL`` pages, which must grant
     the free prefix.  Checks: conservation after every burst, every
@@ -2685,7 +3109,7 @@ def page_table_full_size(foresight: bool) -> tuple:
                 check(not ok.any(), "a fault denies the whole grant")
                 counts["denied"] += 1
             next_seq += 1
-        sq, bk, (found, got) = decode(running[-PT_RUNNING:])
+        sq, bk, (found, got) = decode(running[-PT_DECODE:])
         want_p = np.array([oracle[(s, b)] for s, b in zip(sq.tolist(),
                                                           bk.tolist())])
         lookups.append((found, got, want_p))
@@ -2716,6 +3140,8 @@ def page_table_full_size(foresight: bool) -> tuple:
     launches = read_launches()
     lap("main_path")
     check(launches[clus] >= 1, f"page-table path launched {clus}")
+    check(launches["apply_ops"] >= counts["alloc_blocks"] // PT_BLOCKS,
+          "every grant and release launched the update kernel")
 
     check(conserved and len(pt.free) + pt.n_live == PT_PAGES,
           f"{v} free + live == n_pages after every burst")
@@ -2752,7 +3178,7 @@ def page_table_full_size(foresight: bool) -> tuple:
     check(report_wd.ok, f"{v} invariant watchdog green")
     lap("checks")
 
-    sq, bk, _ = decode(running[-PT_RUNNING:])
+    sq, bk, _ = decode(running[-PT_DECODE:])
     decode_ms = time_ms(lambda: pt.lookup(sq, bk), KERNEL_REPS)
     keys = torch.from_numpy(page_key(sq, bk).astype(np.int32)).to(DEVICE)
     kernel_ms = time_ms(lambda: ops.search_kernel(pt.index, keys),
@@ -2781,7 +3207,7 @@ def page_table_full_size(foresight: bool) -> tuple:
               "decode_lanes_per_step": int(sq.size),
               "decode_lookup_ms": decode_ms,
               "search_kernel_sharded_ms": kernel_ms,
-              "launches": launches_on(launches, (clus,)),
+              "launches": launches_on(launches, (clus, "apply_ops")),
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
               "stage_s": stage_s,
               "seconds": time.perf_counter() - t_phase}
@@ -3984,6 +4410,7 @@ def run_phases(smi: str, t_start: float) -> None:
     """Every phase after the build."""
     small_check()
     small_update_check()
+    update_kernel_check()
     small_sharded_check()
     meshes = init_mesh_group()
     small_mesh_check(meshes)
@@ -4004,7 +4431,8 @@ def run_phases(smi: str, t_start: float) -> None:
                      "batch_order": mono[True][name]["ungrouped_ms"]
                      / mono[False][name]["ungrouped_ms"]}
               for name in traffic}})
-    versioned, versioned_groups = versioned_full_size(keys_np, traffic)
+    versioned, versioned_groups, update_row = versioned_full_size(keys_np,
+                                                                  traffic)
     # The kernels line takes traffic A's rows; the pass's launches are those
     # of every path that ran it (K1's, K2's, K8's, and the fat K1's and
     # K2's below).
@@ -4014,7 +4442,7 @@ def run_phases(smi: str, t_start: float) -> None:
         mono[foresight]["zipf"].pop("group")
     key_row["launches"] += versioned_groups
     rows = [mono[True]["uniform"], mono[False]["uniform"],
-            versioned["uniform"], key_row]
+            versioned["uniform"], key_row, update_row]
     ops_ = synchrobench_ops(SHARD_UPDATE_OPS, SEED + 5)
     t0 = time.perf_counter()
     stream = (ops_, *host_oracle(keys_np, *ops_[:2]))
@@ -4028,6 +4456,8 @@ def run_phases(smi: str, t_start: float) -> None:
         mesh_reports.append(mesh_full_size(keys_np, traffic, stream,
                                            foresight, (fp, answers),
                                            meshes[DEVICE]))
+    for g in grouping.values():         # the sharded paths' batches
+        update_row["launches"] += g["apply_ops_launches"]
     group_row = grouping[(True, 1)]["row"]
     group_row["launches"] += grouping[(False, 1)]["row"]["launches"]
     group_row["max_abs_err"] = max(group_row["max_abs_err"],
@@ -4077,10 +4507,14 @@ def run_phases(smi: str, t_start: float) -> None:
         fat_rows += sharded_rows
         g = grouping[(foresight, 128)]["row"]    # the pass's fat-path runs
         group_row["launches"] += g["launches"]
+        update_row["launches"] += grouping[(foresight, 128)][
+            "apply_ops_launches"]
         group_row["max_abs_err"] = max(group_row["max_abs_err"],
                                        g["max_abs_err"])
     key_row["launches"] += sum(f["group_by_key_launches"]
                                for f in fat.values())
+    update_row["launches"] += sum(f["apply_ops_launches"]
+                                  for f in fat.values())
     fat_by_name = {r["name"]: r for r in fat_rows}
     k9 = fat[(128, True)]["k9"]
     k9["launches"] = sum(r["launches"] for r in fat_rows)

@@ -52,13 +52,13 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.skiplist import (HEAD, KEY_MAX, KEY_MIN, NULL_VAL,
                                        OP_INSERT, TAIL, SkipListState,
-                                       _clone, _to_i32, allocate,
-                                       apply_ops_inplace, build, build_into,
-                                       check_foresight_invariant,
-                                       fat_scan_step, fill_empty, host_ops,
+                                       _clone, _to_i32, allocate, build,
+                                       build_into, check_foresight_invariant,
+                                       fat_scan_step, fill_empty,
                                        node_slots_for, resolve_device,
                                        run_position, scan_result, search,
                                        sorted_live_kv, usable_capacity)
+from repro_torch.kernels import apply_ops as apply_kernel
 
 MAX_INDEX = 2**31 - 1
 
@@ -697,18 +697,14 @@ def _apply_segment_passes(shl: ShardedSkipList, op_types: torch.Tensor,
                           lens: torch.Tensor
                           ) -> Tuple[ShardedSkipList, torch.Tensor]:
     """Run each shard's segment ``[starts[s], starts[s] + lens[s])`` of the
-    route-sorted batch on a clone of the stack, in order; unsort results."""
-    ops_h, keys_h, vals_h = host_ops(op_types[perm], keys[perm], vals[perm])
+    route-sorted batch on a clone of the stack, in order (one launch of
+    ``kernels.apply_ops.apply_ops_batch`` on the card); unsort results.
+    ``perm``, ``starts`` and ``lens`` stay on the state's device."""
     shards = _clone(shl.shards)
-    res_sorted = [0] * keys.shape[0]
-    for s, (a, ln) in enumerate(zip(starts.tolist(), lens.tolist())):
-        if ln:
-            res_sorted[a:a + ln] = apply_ops_inplace(
-                shard_view(shards, s), ops_h[a:a + ln], keys_h[a:a + ln],
-                vals_h[a:a + ln])
+    res_sorted = apply_kernel.apply_ops_batch(
+        shards, op_types[perm], keys[perm], vals[perm], starts, lens)
     results = torch.empty_like(keys)
-    results[perm] = torch.tensor(res_sorted, dtype=torch.int32,
-                                 device=keys.device)
+    results[perm] = res_sorted
     return shl._replace(shards=shards), results
 
 

@@ -488,7 +488,9 @@ def _scatter_rows(preds: torch.Tensor, lvl: torch.Tensor, x: torch.Tensor,
 # versions for mixed-view reads.  Here the public ``insert`` / ``delete`` /
 # ``apply_ops`` never modify their input state either: each clones the
 # state's tensors once (``apply_ops`` once per batch) and then updates the
-# clone in place op by op through the ``_*_inplace`` helpers.
+# clone in place, on the card with the update kernel
+# (``kernels.apply_ops``), on the CPU op by op through the ``_*_inplace``
+# helpers below, its plain version.
 #
 # The reference is branch-free (``jnp.where`` over every level, with
 # out-of-range scatters dropped); the port branches on the host instead and
@@ -767,19 +769,18 @@ def insert(state: SkipListState, key, val) -> Tuple[SkipListState,
     """Insert (upsert) one key: (new state, inserted_new [] bool).
 
     ``state`` is left unchanged.  A full list (no free slot) inserts
-    nothing and reports False; the rng key still advances.
+    nothing and reports False; the rng key still advances.  A batch of
+    one through ``apply_ops``.
     """
-    st = _clone(state)
-    ok = _insert_inplace(st, _to_i32(key), _to_i32(val))
-    return st, torch.tensor(ok, device=state.device)
+    st, res = apply_ops(state, OP_INSERT, key, val)
+    return st, res[0] != 0
 
 
 def delete(state: SkipListState, key) -> Tuple[SkipListState, torch.Tensor]:
     """Delete one key: (new state, deleted [] bool).  ``state`` is left
-    unchanged."""
-    st = _clone(state)
-    ok = _delete_inplace(st, _to_i32(key))
-    return st, torch.tensor(ok, device=state.device)
+    unchanged.  A batch of one through ``apply_ops``."""
+    st, res = apply_ops(state, OP_DELETE, key, 0)
+    return st, res[0] != 0
 
 
 # ---------------------------------------------------------------------------
@@ -824,13 +825,24 @@ def apply_ops(state: SkipListState, op_types, keys, vals
     reference's ``lax.scan``.  ``state`` is left unchanged: its tensors are
     cloned once for the batch and the clone is updated in place.
 
-    The ops run one after another on the host, each through the eager
-    ``search`` with its per-step host sync, so an op costs milliseconds on
-    a card at large sizes.
+    The batch runs through ``kernels.apply_ops.apply_ops_batch`` on a
+    leading-1 view of the clone: on the card one launch of the update
+    kernel, on the CPU the host loop ``apply_ops_inplace``.
     """
+    from repro_torch.kernels.apply_ops import apply_ops_batch
+
+    dev = state.device
+    op_types, keys, vals = (
+        torch.as_tensor(a, device=dev).to(torch.int32).reshape(-1)
+        .contiguous() for a in (op_types, keys, vals))
     st = _clone(state)
-    results = apply_ops_inplace(st, *host_ops(op_types, keys, vals))
-    return st, torch.tensor(results, dtype=torch.int32, device=st.device)
+    stack = SkipListState(*(None if t is None else t.unsqueeze(0)
+                            for t in st))
+    i32 = dict(dtype=torch.int32, device=dev)
+    results = apply_ops_batch(stack, op_types, keys, vals,
+                              torch.zeros((1,), **i32),
+                              torch.full((1,), keys.shape[0], **i32))
+    return st, results
 
 
 # ---------------------------------------------------------------------------

@@ -70,6 +70,11 @@ _SIGNATURES = {
     # queries, partials, counts, scanned, offsets, q_mid, perm_mid,
     # q_sorted, perm | batch (no max_steps)
     "group_by_key_launch": [_P] * 9 + [_LL, _P],
+    # fused, nxt, keys, vals, height, n, free_top, free_list, bump, rng,
+    # fat_keys, fat_vals, nlen, op_types, op_keys, op_vals, starts, lens,
+    # ref_ctz, results, cases | shards, levels, cap, width, max_steps (the
+    # update kernel, apply_ops.cu)
+    "apply_ops_launch": [_P] * 21 + [_I, _I, _LL, _I, _LL, _P],
 }
 
 

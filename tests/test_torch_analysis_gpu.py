@@ -54,8 +54,9 @@ def test_the_sync_pass_counts_every_entry_point(cuda, tmp_path):
                  "apply_ops_mesh[rebalance]", "exhaustion_guard_traced"):
         assert syncs[name]["per_op"] == syncs[name]["syncs"] / \
             syncs[name]["ops"]
-    # the host loop of the updates syncs; the dense kernel search does not
-    assert syncs["VersionedIndex.update"]["syncs"] > 0
+    # the update kernel makes no sync (the in-place rebalance drivers of
+    # the other update paths do); nor does the dense kernel search
+    assert syncs["VersionedIndex.update"]["syncs"] == 0
     assert syncs["search_kernel_sharded[fg,plain]"]["syncs"] == 0
     assert torch.cuda.get_sync_debug_mode() == before
 
