@@ -26,9 +26,12 @@ Phases, one JSON line each:
    clones of the same small states: node widths 1, 8 and 128, both
    variants, a monolithic list filled until allocation is refused and 8
    shards, streams with op types -1 and 3 and ``KEY_MAX``'s insert, read
-   and delete, and at B = 8 ``fat_case_stream`` on an empty list; every
-   array, the rng and every result equal; every fat case counted on the
-   card (read once, at the end) ran;
+   and delete, and at B = 8 ``fat_case_stream`` on an empty list; the
+   kernel's window conflicts (consecutive grants, a key in, out and in
+   again, a freed id reused, short and window + 1 batches, at B = 1 and 8
+   on 10 and on 3 levels) and a free-list pop past ``cap``; every array,
+   the rng and every result equal; every fat case counted on the card
+   (read once, at the end) ran, and every op's check was counted;
 5. the paper's configuration, once per variant: 2^25 keys drawn from
    [0, 2^26) (Synchrobench: key range twice the size), vals = keys + 1,
    27 levels, capacity 2^26, built on the card with
@@ -405,7 +408,7 @@ KERNELS = {   # name -> (wrapper, plain version, source, TPU kernel replaced)
     # K2/K8's key-range grouping pass, the same
     "group_by_key": (sg.group_by_key, sg.group_by_key_plain, SHARD_GROUP_CU,
                      "none (a new pass; no TPU kernel)"),
-    # the write path: every writer's batch, one warp a shard
+    # the write path: every writer's batch, one block a shard
     "apply_ops": (ak.apply_ops_batch, ak.apply_ops_batch_plain,
                   "src/repro_torch/csrc/apply_ops.cu",
                   "none: src/repro/core/skiplist.py:930 apply_ops, a jitted "
@@ -904,6 +907,41 @@ def kernel_check_stream(keys: np.ndarray, span: int, n: int, fill: int,
 # update_kernel_check's states: (node width, keys, free node slots past
 # the build, fresh inserts); the fat lists fill their runs first
 KERNEL_CHECK_LISTS = ((1, 600, 20, 40), (8, 160, 2, 200), (128, 128, 1, 140))
+# and the lists the window conflicts run on: (node width, levels)
+CONFLICT_LISTS = ((1, 10), (8, 10), (1, 3), (8, 3))
+
+
+def op_runs(*parts):
+    """(op type, keys) runs -> the three int32 op arrays, vals key * 5 + 3."""
+    types = np.concatenate([np.full(len(k), t) for t, k in parts])
+    ks = np.concatenate([np.asarray(k) for _, k in parts])
+    return (types.astype(np.int32), ks.astype(np.int32),
+            (ks * 5 + 3).astype(np.int32))
+
+
+def window_conflict_streams(keys: np.ndarray) -> dict:
+    """Streams that make the update kernel's recorded predecessors fail
+    their check, on the sorted ``keys``: 16-op grants of consecutive ids
+    (the page table's), then the same ids read, deleted and inserted
+    again; a key inserted, deleted and inserted again inside a window; a
+    delete whose freed id the next insert reuses; fewer ops than a window;
+    a window and one op."""
+    I, R, D, W = sl.OP_INSERT, sl.OP_READ, sl.OP_DELETE, ak.WINDOW
+    grants = np.concatenate([np.arange(k + 1, k + 17) for k in keys[1:8:3]])
+    k0, k1 = int(keys[2]) + 1, int(keys[3]) + 1
+    return {
+        "grants": op_runs((I, grants), (R, grants), (D, grants[::-1]),
+                          (I, grants[16:])),
+        "reinsert": op_runs(*[(t, [k]) for t, k in zip(
+            (I, D, I, D, I, D, I), (k0, k0, k0, k1, k1, k1, k0 + 1))],
+            (R, [k0, k1])),
+        "reuse": op_runs(*[(sl.OP_DELETE, [k]) if i % 2 == 0 else
+                           (sl.OP_INSERT, [k + 7]) for i, k in
+                           enumerate(np.repeat(keys[4:24], 2))]),
+        "short": op_runs((I, [k0, k0 + 1, k0 + 2]), (D, keys[2:3]),
+                         (R, [k0, int(keys[2])])),
+        "window_plus_one": op_runs((I, k1 + np.arange(W)), (D, [k1])),
+    }
 
 
 def update_kernel_check() -> None:
@@ -911,9 +949,12 @@ def update_kernel_check() -> None:
     clones of the same small states: scalar and fat (B = 8, 128), foresight
     and base, a monolithic list filled until allocation is refused and 8
     shards; streams with op types -1 and 3 and ``KEY_MAX``'s cases, and at
-    B = 8 ``fat_case_stream`` on an empty list.  Every array, the rng
-    included, and every result equal; each fat case counted on the card
-    (read once, at the end) ran."""
+    B = 8 ``fat_case_stream`` on an empty list; the window conflicts
+    (``window_conflict_streams``) at B = 1 and 8 on 10 and on 3 levels,
+    and a free-list pop past ``cap``.  Every array, the rng included, and
+    every result equal; each fat case counted on the card (read once, at
+    the end) ran, and every op's check was counted, some resuming a
+    walk."""
     t0 = time.perf_counter()
     report = {"phase": "update_kernel_check", "comparisons": 0, "ops": 0}
     ak.reset_fat_cases(DEVICE)
@@ -949,10 +990,40 @@ def update_kernel_check() -> None:
                 if label == "list":
                     report[f"{what} refused_inserts"] = \
                         got["refused_inserts"]
+    for width, levels in CONFLICT_LISTS:
+        keys = small_keys()[:120]
+        for foresight in (True, False):
+            st = sl.build(keys, keys * 2, capacity=sl.node_slots_for(
+                120, width) + 160, levels=levels, foresight=foresight,
+                seed=SEED, node_width=width, device=dev)
+            for label, stream in window_conflict_streams(keys).items():
+                if label == "window_plus_one" and (width, levels) != (1, 10):
+                    continue                  # once: the longest stream
+                what = (f"{variant(foresight)} width {width}, {levels} "
+                        f"levels, {label}")
+                batch = route_sorted(None, 1, *stream)
+                plain_comparison(one_shard(st), batch, what)
+                report["comparisons"] += 1
+                report["ops"] += batch.n
+    for foresight in (True, False):     # a free-list pop past cap
+        st = sl.build(np.array([5, 9, 13], np.int32), [10, 18, 26],
+                      capacity=8, levels=3, foresight=foresight, seed=SEED,
+                      device=dev)
+        batch = route_sorted(None, 1, *op_runs(
+            (sl.OP_DELETE, [sl.KEY_MAX] * 12), (sl.OP_INSERT, [7])))
+        plain_comparison(one_shard(st), batch,
+                         f"{variant(foresight)}, a pop past cap")
+        report["comparisons"] += 1
+        report["ops"] += batch.n
     counts = ak.fat_cases(DEVICE)
     report["fat_cases"] = dict(counts)
     for case in ak.CASE_NAMES:
         check(counts[case] > 0, f"the update kernel ran fat case {case}")
+    checks = ak.window_checks(DEVICE)
+    report["window_checks"] = checks
+    check(checks["ops_stood"] + checks["walks_resumed"] == report["ops"]
+          and checks["walks_resumed"] > 0,
+          "every op's predecessors were checked, and some walks resumed")
     report["seconds"] = time.perf_counter() - t0
     emit(report)
 
@@ -1068,14 +1139,16 @@ def event_ms(fn):
 def update_times(stack: sl.SkipListState, batch, want=None) -> tuple:
     """The update kernel alone on ``batch`` over fresh clones of the
     stacked ``stack`` (``UPDATE_REPS`` runs, the clone not timed), the
-    clone's own ms, ns a dependent step and the byte bound.  Every run's
-    results equal the first's (and ``want``'s).  Returns (report, the last
-    run's state, its results)."""
+    clone's own ms, ns a dependent step, the byte bound and the kernel's
+    window checks (the last run's, read once).  Every run's results equal
+    the first's (and ``want``'s).  Returns (report, the last run's state,
+    its results)."""
     clone_ms = time_ms(lambda: sl._clone(stack), PLAIN_REPS)
     times, first, after = [], None, None
     for _ in range(UPDATE_REPS):
         after = None                   # one clone at a time
         after = sl._clone(stack)
+        ak.reset_fat_cases(DEVICE)
         res, ms = event_ms(lambda: ak.apply_ops_batch(
             after, *batch.ops, batch.starts, batch.lens))
         times.append(ms)
@@ -1084,10 +1157,16 @@ def update_times(stack: sl.SkipListState, batch, want=None) -> tuple:
                                            torch.equal(res, want)),
               "the update kernel's results equal on every run")
     ms = statistics.median(times)
+    checks = ak.window_checks(DEVICE)          # the last run's
+    check(checks["ops_stood"] + checks["walks_resumed"] == batch.n,
+          "the update kernel checked every op's predecessors")
     b = update_bound(stack, batch, after)
     return ({"ops": batch.n, "shards_with_ops": batch.shards, "ms": ms,
              "reps_ms": times, "us_per_op": ms * 1e3 / batch.n,
-             "clone_ms": clone_ms, **b,
+             "clone_ms": clone_ms, "window_checks": checks,
+             "resumed_share": checks["walks_resumed"] / batch.n,
+             "steps_per_resumed_walk": checks["resumed_steps"]
+             / max(checks["walks_resumed"], 1), **b,
              "ns_per_step": ms * 1e6 / b["steps"],
              "ns_per_critical_shard_step": ms * 1e6
              / b["critical_shard_steps"],
@@ -2672,6 +2751,9 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
                       update_us_per_op=update_s / len(types) * 1e6,
                       n_after=int(new.n))
         del new, after, saved
+        upd, _, _ = update_times(one_shard(st), route_sorted(
+            None, 1, types, ks, vs), want=results)
+        report["update_kernel"] = upd
     lap("oracle_checks")
 
     wrapper, plain, source, replaces = KERNELS[name]

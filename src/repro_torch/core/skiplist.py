@@ -511,12 +511,15 @@ def _alloc(state: SkipListState) -> Tuple[int, bool]:
     """Pop a node id from the free list, else bump, in place: (id, ok).
 
     With neither (free list empty, ``bump == capacity``) it returns
-    ``(capacity, False)`` and changes nothing.
+    ``(capacity, False)`` and changes nothing.  With ``free_top`` past
+    ``capacity`` (pushes onto a full free list are dropped) the pop reads
+    the last slot, ``free_list[capacity - 1]``, as the reference's clamped
+    gather does.
     """
     top = int(state.free_top)
     if top > 0:
         state.free_top.sub_(1)
-        return int(state.free_list[top - 1]), True
+        return int(state.free_list[min(top, state.capacity) - 1]), True
     bump = int(state.bump)
     if bump < state.capacity:
         state.bump.add_(1)

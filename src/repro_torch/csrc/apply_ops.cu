@@ -37,31 +37,58 @@
 //     Each case adds one to its slot of `cases` (core/skiplist.py
 //     FAT_CASES' names, in FatCase order).
 //
-// Design: one warp a shard, one block a warp.  Lane 0 walks each op's
-// search and records the predecessor of every level in shared memory; the
-// whole warp then does the rest: a splice or unsplice one lane a level
-// (L <= 32), a fat run's count of lanes below the key by ballot and
-// popcount (32 lanes a step), its shift through a copy in shared memory,
-// and the foreseen-key fix one lane a level.  __syncwarp() orders each
-// step's writes before the next step's reads.  The state is written by
-// this warp only, so every load is a plain coherent one: no __ldg, no
-// const __restrict__ on the state.  K9's fat_resolve (traverse.cu) does
-// not fit here: it reads through the read-only path, which may return
-// stale lines of a row this kernel has just written, and it resolves many
-// lanes' rows at once where an update resolves one.
+// Design: one block a shard, in windows of kWindow ops.  (1) The walk
+// phase: thread j of the kWindow walking threads (kWindow / 32 warps)
+// walks op j of the window, read-only, on the state as it stands at the
+// window's start, and records its predecessor at every level in shared
+// memory (kWindow walks, so kWindow misses in flight where a walk at a time
+// had one); it then asks L2 for the lines the apply phase will read that no
+// walk did: each predecessor's height and key, the found node's height and
+// lowest records (a delete's), a fat owner's run and length.  Meanwhile
+// the block's last warp computes the window's tower heights (below).  (2)
+// The apply phase: warp 0 runs the window's ops in order.  Before op j it
+// checks j's recorded predecessors against the state as it stands now, one
+// lane a level: p stands at level l for key q if p is the head, or is
+// linked at l (height[p] > l) with keys[p] < q, and p's record at l
+// foresees a key >= q (base: its pointee's key >= q).  On a list whose
+// levels are sorted, that p is the rightmost node below q on level l: the
+// one a fresh walk finds.  Below the highest level that fails, lane 0
+// resumes the walk from the checked predecessor of the level above (the
+// head at the top) down to level 0; the rest runs on the predecessors
+// checked or found, as a walk at a time ran it: a splice or unsplice one
+// lane a level (L <= 32), a fat run's count of lanes below the key by
+// ballot and popcount (32 lanes a step), its shift through a copy in
+// shared memory, and the foreseen-key fix one lane a level.  A fat
+// split's second walk (the median's predecessors) walks from the head.
+// __syncwarp() orders each step's writes before the next step's reads,
+// __syncthreads() the apply phase's before the next walk phase's.  The
+// state is written by this block only, so every load is a plain coherent
+// one: no __ldg, no const __restrict__ on the state.  K9's fat_resolve
+// (traverse.cu) does not fit here: it reads through the read-only path,
+// which may return stale lines of a row this kernel has just written, and
+// it resolves many lanes' rows at once where an update resolves one.
+//
+// The rng: every insert splits the key, a serial chain that depends only
+// on how many inserts came before.  The last warp runs the window's chain
+// (lane 0, one threefry an insert) and then draws each insert's height
+// (a lane an insert) while the walks run, so the apply phase only reads
+// the heights; the block's key after the batch is the same.
 //
 // Base reads the pointer, then the pointee's key: two dependent loads a
 // step, as K2 does.  Foresight reads the (ptr, key) record as one 8-byte
 // load and writes a predecessor's record as one 8-byte store: the paper's
 // pair written at once.
 //
-// What bounds it: each op's chain of dependent loads (the walk, a miss to
-// HBM a step on an index far larger than L2), then a few more for the
-// splice; the ops of a shard run one after another, so a shard's time is
-// its ops' chains end to end, and shards overlap only with each other.
-// Neither the byte rate nor the arithmetic is the limit.
+// What bounds it: dependent loads.  A window costs about one walk's chain
+// of misses (the walks overlap) plus, for each op in turn, the check's
+// loads (L2 hits: the walk's own records and the lines asked for) and the
+// splice; shards run side by side.  Neither the byte rate nor the
+// arithmetic is the limit.  kWindow = 256 was measured the fastest of 32,
+// 64, 128 and 256 (chip_probe_apply.py).  The checks are counted on the
+// device: the ops whose predecessors all stood, the ops that resumed a
+// walk, and the resumed walks' steps (cases[7..9]).
 //
-// The walk runs under max_steps (kernels/foresight_traverse.py
+// Every walk runs under max_steps (kernels/foresight_traverse.py
 // traversal_bound): past it the table is corrupt and the kernel traps,
 // where the reference would loop for ever.  A shard's offset into the
 // stack is 64-bit: 64 shards x 21 levels x 2^21 slots of records is past
@@ -72,8 +99,11 @@
 
 namespace {
 
-constexpr int kWarp = 32;          // threads a block: one warp, one shard
+constexpr int kWarp = 32;          // lanes a warp; warp 0 applies the ops
+constexpr int kWindow = 256;       // ops walked at once: threads that walk
+constexpr int kThreads = kWindow + kWarp;   // + the rng warp
 constexpr int kMaxLevels = 32;     // one lane a level
+constexpr int kPredStride = kMaxLevels + 1;  // an op's row, bank-skewed
 constexpr int kKeyMax = 0x7fffffff;
 constexpr int kNullVal = -1;
 constexpr int kHead = 0;
@@ -81,6 +111,8 @@ constexpr int kTail = 1;
 constexpr unsigned kFullMask = 0xffffffffu;
 enum OpType { kRead = 0, kInsert = 1, kDelete = 2 };
 enum FatCase { kUpsert, kFirst, kRoom, kSplit, kEmptied, kMinLane, kPlain };
+// cases[] after the fat cases: the checks of the window's predecessors
+enum CheckCount { kStood = 7, kResumed = 8, kResumedSteps = 9 };
 
 struct Args {
   int2* fused;             // [S, L, cap] records (foresight) or null
@@ -103,7 +135,7 @@ struct Args {
   const int* lens;         // [S]
   const int* ref_ctz;      // [33]
   int* results;            // [batch], route-sorted
-  unsigned long long* cases;   // [7] fat case counts
+  unsigned long long* cases;   // [10] fat case counts, then CheckCount
   int levels;
   long long cap;
   int width;
@@ -131,8 +163,8 @@ __device__ __forceinline__ unsigned rotl(unsigned v, int r) {
 }
 
 // Threefry-2x32, 20 rounds (core/prng.py threefry2x32).
-__device__ uint2 threefry2x32(unsigned k0, unsigned k1, unsigned x0,
-                              unsigned x1) {
+__device__ __forceinline__
+uint2 threefry2x32(unsigned k0, unsigned k1, unsigned x0, unsigned x1) {
   const unsigned ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
   x0 += ks[0];
@@ -150,58 +182,77 @@ __device__ uint2 threefry2x32(unsigned k0, unsigned k1, unsigned x0,
   return make_uint2(x0, x1);
 }
 
-// split(rng) -> (rng', sub); the tower height drawn from sub's bits.
-__device__ int split_and_draw(unsigned& k0, unsigned& k1, int levels,
-                              const int* ref_ctz) {
-  const uint2 next = threefry2x32(k0, k1, 0u, 0u);
+// split(rng) = (rng', sub): the tower height drawn from key (k0, k1)'s sub.
+__device__ __forceinline__
+int draw_height(unsigned k0, unsigned k1, int levels, const int* ref_ctz) {
   const uint2 sub = threefry2x32(k0, k1, 0u, 1u);
-  k0 = next.x;
-  k1 = next.y;
   const uint2 h = threefry2x32(sub.x, sub.y, 0u, 0u);
   const unsigned ones = ~(h.x ^ h.y);          // trailing one-bits of bits
   const int exact = ones == 0u ? 32 : __ffs((int)ones) - 1;
   return min(ref_ctz[exact] + 1, levels);
 }
 
-// Lane 0's search for q: every level's predecessor into preds, the final
-// level-0 predecessor into x; returns its level-0 record (successor, key).
+__device__ __forceinline__ int clamp_type(int t) {
+  return min(max(t, (int)kRead), (int)kDelete);
+}
+
+// A hint: bring p's line into L2, without waiting for it.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(__cvta_generic_to_global(p)));
+}
+
+// Node x's record at level l as a walk reads it: (successor, its key).
 template <bool kForesight>
-__device__ int2 walk(const Shard& sh, int q, int* preds, long long max_steps,
-                     int& x) {
-  x = kHead;
-  int lvl = sh.levels - 1;
-  long long steps = 0;
+__device__ __forceinline__ int2 record(const Shard& sh, int l, int x) {
+  const size_t idx = (size_t)l * (size_t)sh.cap + (size_t)x;
+  if (kForesight) return sh.fused[idx];      // one 8-byte load
+  const int ptr = sh.nxt[idx];
+  return make_int2(ptr, sh.keys[ptr]);       // dependent on ptr
+}
+
+// The search for q from node x at level lvl down to level 0: each level's
+// predecessor into preds, the level-0 one into x.  False past max_steps.
+template <bool kForesight>
+__device__ __forceinline__
+bool descend(const Shard& sh, int q, int* preds, int lvl, int& x,
+             long long max_steps, long long& steps) {
   while (lvl >= 0) {
-    if (++steps > max_steps) __trap();       // a corrupt table
-    const size_t idx = (size_t)lvl * (size_t)sh.cap + (size_t)x;
-    int ptr, fk;
-    if (kForesight) {
-      const int2 rec = sh.fused[idx];        // one 8-byte load
-      ptr = rec.x;
-      fk = rec.y;
-    } else {
-      ptr = sh.nxt[idx];
-      fk = sh.keys[ptr];                     // dependent on ptr
-    }
-    if (fk < q) {
-      x = ptr;
+    if (++steps > max_steps) return false;   // a corrupt table
+    const int2 rec = record<kForesight>(sh, lvl, x);
+    if (rec.y < q) {
+      x = rec.x;
     } else {
       preds[lvl] = x;
       --lvl;
     }
   }
-  if (kForesight) return sh.fused[x];
-  const int ptr = sh.nxt[x];
-  return make_int2(ptr, sh.keys[ptr]);
+  return true;
 }
 
-// The warp's copy of lane 0's walk: (x, level-0 record), preds in shared.
+// Whether p stands as q's predecessor at level l (see the top); rec gets
+// p's level-l record.  The loads are issued together.
 template <bool kForesight>
-__device__ int2 locate(const Shard& sh, int q, int* preds,
+__device__ __forceinline__ bool stands(const Shard& sh, int p, int l, int q,
+                                       int2& rec) {
+  rec = record<kForesight>(sh, l, p);
+  const int hp = sh.height[p], kp = sh.keys[p];
+  return (p == kHead || (hp > l && kp < q)) && rec.y >= q;
+}
+
+// The warp's walk from the head (lane 0): (x, level-0 record), preds in
+// shared memory.
+template <bool kForesight>
+__device__ __forceinline__ int2 locate(const Shard& sh, int q, int* preds,
                        long long max_steps, int lane, int& x) {
   int2 c = make_int2(0, 0);
-  x = 0;
-  if (lane == 0) c = walk<kForesight>(sh, q, preds, max_steps, x);
+  x = kHead;
+  if (lane == 0) {
+    long long steps = 0;
+    if (!descend<kForesight>(sh, q, preds, sh.levels - 1, x, max_steps,
+                             steps))
+      __trap();
+    c = record<kForesight>(sh, 0, x);
+  }
   __syncwarp();
   x = __shfl_sync(kFullMask, x, 0);
   c.x = __shfl_sync(kFullMask, c.x, 0);
@@ -210,7 +261,8 @@ __device__ int2 locate(const Shard& sh, int q, int* preds,
 }
 
 // Pop the free list, else bump; warp-uniform.  False: no slot, no change.
-__device__ bool alloc(const Shard& sh, int& free_top, int& bump, int& nid) {
+__device__ __forceinline__
+bool alloc(const Shard& sh, int& free_top, int& bump, int& nid) {
   if (free_top > 0) {
     const long long i = min((long long)free_top - 1, sh.cap - 1);
     nid = sh.free_list[i];
@@ -228,8 +280,9 @@ __device__ bool alloc(const Shard& sh, int& free_top, int& bump, int& nid) {
 // Link node nid (key nkey, height h) after preds on levels 0 .. h-1: it
 // inherits each predecessor's record, and the predecessor gets (nid, nkey).
 template <bool kForesight>
-__device__ void splice(const Shard& sh, int nid, int nkey, int h,
-                       const int* preds, int lane) {
+__device__ __forceinline__
+void splice(const Shard& sh, int nid, int nkey, int h, const int* preds,
+            int lane) {
   for (int l = lane; l < min(h, sh.levels); l += kWarp) {
     const size_t row = (size_t)l * (size_t)sh.cap;
     const int p = preds[l];
@@ -253,8 +306,9 @@ __device__ void splice(const Shard& sh, int nid, int nkey, int h,
 // Unlink node d from preds (each takes d's record at its level) and push
 // it on the free list.
 template <bool kForesight>
-__device__ void unsplice(const Shard& sh, int d, const int* preds,
-                         int& free_top, int lane) {
+__device__ __forceinline__
+void unsplice(const Shard& sh, int d, const int* preds, int& free_top,
+              int lane) {
   const int h = min(sh.height[d], sh.levels);
   __syncwarp();                              // every lane has read h
   for (int l = lane; l < h; l += kWarp) {
@@ -277,8 +331,9 @@ __device__ void unsplice(const Shard& sh, int d, const int* preds,
 // Node owner's routing key becomes new_min, and so does the foreseen key of
 // every predecessor record that points at it.
 template <bool kForesight>
-__device__ void set_node_min(const Shard& sh, int owner, int new_min,
-                             const int* preds, int lane) {
+__device__ __forceinline__
+void set_node_min(const Shard& sh, int owner, int new_min, const int* preds,
+                  int lane) {
   if (lane == 0) sh.keys[owner] = new_min;
   if (kForesight) {
     for (int l = lane; l < sh.levels; l += kWarp) {
@@ -291,7 +346,8 @@ __device__ void set_node_min(const Shard& sh, int owner, int new_min,
 }
 
 // A run's lanes below q, over all B lanes: 32 lanes a ballot.
-__device__ int count_below(const int* row, int width, int q, int lane) {
+__device__ __forceinline__
+int count_below(const int* row, int width, int q, int lane) {
   int pos = 0;
   for (int base = 0; base < width; base += kWarp) {
     const int e = base + lane;
@@ -301,8 +357,9 @@ __device__ int count_below(const int* row, int width, int q, int lane) {
 }
 
 // Copy a run (keys and vals) into shared memory.
-__device__ void stage_row(const int* rk, const int* rv, int* sk, int* sv,
-                          int width, int lane) {
+__device__ __forceinline__
+void stage_row(const int* rk, const int* rv, int* sk, int* sv, int width,
+               int lane) {
   for (int e = lane; e < width; e += kWarp) {
     sk[e] = rk[e];
     sv[e] = rv[e];
@@ -310,25 +367,175 @@ __device__ void stage_row(const int* rk, const int* rv, int* sk, int* sv,
   __syncwarp();
 }
 
-// The run value of lane e after (key, val) is shifted in at lane p of the
-// run src (which reads lane j of the run before the shift).
-template <typename Src>
-__device__ __forceinline__ int shifted_in(Src src, int e, int p, int kv) {
-  return e > p ? src(e - 1) : (e == p ? kv : src(e));
+// Lane j of the run src[off .. off + len), pad past it.
+__device__ __forceinline__ int run_lane(const int* src, int off, int len,
+                                        int pad, int j) {
+  return j < len ? src[off + j] : pad;
+}
+
+// Lane e of that run after kv is shifted in at lane p.
+__device__ __forceinline__ int shifted_in(const int* src, int off, int len,
+                                          int pad, int e, int p, int kv) {
+  return e > p ? run_lane(src, off, len, pad, e - 1)
+               : (e == p ? kv : run_lane(src, off, len, pad, e));
+}
+
+// Op t (key q, val v; an insert's tower height h) on the checked or
+// found predecessors preds, level-0 predecessor x and its record c; warp
+// 0 runs it, n / free_top / bump warp-uniform.  Returns its result.
+template <bool kForesight, bool kFat>
+__device__ __forceinline__
+int apply_op(const Args& a, const Shard& sh, int t, int q, int v, int h, int x,
+             int2 c, int* preds, int* preds2, int* sk, int* sv, int& n,
+             int& free_top, int& bump, int lane) {
+  const int B = sh.width;
+  int result = 0;
+  if (!kFat) {
+    const bool found = c.y == q;
+    if (t == kRead) {
+      result = found;
+    } else if (t == kInsert) {
+      int nid;
+      if (found) {
+        if (lane == 0) sh.vals[c.x] = v;      // upsert
+      } else if (alloc(sh, free_top, bump, nid)) {
+        splice<kForesight>(sh, nid, q, h, preds, lane);
+        if (lane == 0) sh.vals[nid] = v;
+        ++n;
+        result = 1;
+      }
+    } else if (found) {
+      unsplice<kForesight>(sh, c.x, preds, free_top, lane);
+      --n;
+      result = 1;
+    }
+  } else {
+    const int owner = (c.y == q || x == kHead) ? c.x : x;
+    int* rk = sh.fat_keys + (size_t)owner * (size_t)B;
+    int* rv = sh.fat_vals + (size_t)owner * (size_t)B;
+    const int pos = count_below(rk, B, q, lane);
+    const int pos_c = min(pos, B - 1);
+    const bool present = pos < B && rk[pos_c] == q;
+    if (t == kRead) {
+      result = present;
+    } else if (t == kInsert) {
+      const bool at_front = x == kHead && !present;
+      const int half = B / 2;
+      int nid;
+      if (present) {
+        if (lane == 0) {
+          atomicAdd(a.cases + kUpsert, 1ull);
+          rv[pos_c] = v;
+        }
+      } else if (owner == kTail) {
+        if (lane == 0) atomicAdd(a.cases + kFirst, 1ull);
+        if (alloc(sh, free_top, bump, nid)) {
+          splice<kForesight>(sh, nid, q, h, preds, lane);
+          int* nk = sh.fat_keys + (size_t)nid * (size_t)B;
+          int* nv = sh.fat_vals + (size_t)nid * (size_t)B;
+          for (int e = lane; e < B; e += kWarp) {
+            nk[e] = e == 0 ? q : kKeyMax;
+            nv[e] = e == 0 ? v : kNullVal;
+          }
+          if (lane == 0) sh.nlen[nid] = 1;
+          ++n;
+          result = 1;
+        }
+      } else if (sh.nlen[owner] < B) {
+        if (lane == 0) atomicAdd(a.cases + kRoom, 1ull);
+        stage_row(rk, rv, sk, sv, B, lane);
+        const int len_owner = sh.nlen[owner];
+        for (int e = lane; e < B; e += kWarp) {
+          rk[e] = shifted_in(sk, 0, B, kKeyMax, e, pos, q);
+          rv[e] = shifted_in(sv, 0, B, kNullVal, e, pos, v);
+        }
+        __syncwarp();
+        if (lane == 0) sh.nlen[owner] = len_owner + 1;
+        ++n;
+        __syncwarp();
+        if (at_front) set_node_min<kForesight>(sh, owner, q, preds, lane);
+        result = 1;
+      } else {
+        if (lane == 0) atomicAdd(a.cases + kSplit, 1ull);
+        if (alloc(sh, free_top, bump, nid)) {
+          stage_row(rk, rv, sk, sv, B, lane);
+          const int new_min = sk[half];
+          // The median's predecessors: its level-0 one is the owner, so
+          // the new node lands after it and preds stays valid.
+          int x2;
+          locate<kForesight>(sh, new_min, preds2, a.max_steps, lane, x2);
+          splice<kForesight>(sh, nid, new_min, h, preds2, lane);
+          int* nk = sh.fat_keys + (size_t)nid * (size_t)B;
+          int* nv = sh.fat_vals + (size_t)nid * (size_t)B;
+          const bool into_lo = q < new_min;  // == is impossible: absent
+          const int hi = B - half;           // the upper half's lanes
+          for (int e = lane; e < B; e += kWarp) {
+            rk[e] = into_lo ? shifted_in(sk, 0, half, kKeyMax, e, pos, q)
+                            : run_lane(sk, 0, half, kKeyMax, e);
+            rv[e] = into_lo ? shifted_in(sv, 0, half, kNullVal, e, pos, v)
+                            : run_lane(sv, 0, half, kNullVal, e);
+            nk[e] = into_lo ? run_lane(sk, half, hi, kKeyMax, e)
+                            : shifted_in(sk, half, hi, kKeyMax, e, pos - half,
+                                         q);
+            nv[e] = into_lo ? run_lane(sv, half, hi, kNullVal, e)
+                            : shifted_in(sv, half, hi, kNullVal, e, pos - half,
+                                         v);
+          }
+          if (lane == 0) {
+            sh.nlen[owner] = into_lo ? half + 1 : half;
+            sh.nlen[nid] = into_lo ? B - half : B - half + 1;
+          }
+          ++n;
+          __syncwarp();
+          if (at_front) set_node_min<kForesight>(sh, owner, q, preds, lane);
+          result = 1;
+        }
+      }
+    } else if (present) {                  // delete
+      stage_row(rk, rv, sk, sv, B, lane);
+      const int new_len = sh.nlen[owner] - 1;
+      for (int e = lane; e < B; e += kWarp) {
+        rk[e] = e < pos ? sk[e] : (e + 1 < B ? sk[e + 1] : kKeyMax);
+        rv[e] = e < pos ? sv[e] : (e + 1 < B ? sv[e + 1] : kNullVal);
+      }
+      __syncwarp();
+      if (lane == 0) sh.nlen[owner] = new_len;
+      --n;
+      __syncwarp();
+      if (new_len == 0) {
+        if (lane == 0) atomicAdd(a.cases + kEmptied, 1ull);
+        unsplice<kForesight>(sh, owner, preds, free_top, lane);
+      } else if (new_len > 0 && pos == 0) {
+        if (lane == 0) atomicAdd(a.cases + kMinLane, 1ull);
+        set_node_min<kForesight>(sh, owner, 1 < B ? sk[1] : kKeyMax,
+                                 preds, lane);
+      } else if (lane == 0) {
+        atomicAdd(a.cases + kPlain, 1ull);
+      }
+      result = 1;
+    }
+  }
+  return result;
 }
 
 template <bool kForesight, bool kFat>
-__global__ void __launch_bounds__(kWarp) apply_ops_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, 1) apply_ops_kernel(Args a) {
   const int s = blockIdx.x;
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
   const int len = a.lens[s];
-  if (len <= 0) return;                       // the whole warp
+  if (len <= 0) return;                       // the whole block
   const long long start = a.starts[s];
   const int L = a.levels, B = a.width;
   extern __shared__ int smem[];
-  int* preds = smem;                          // [kMaxLevels]
-  int* preds2 = smem + kMaxLevels;            // the median's (fat split)
-  int* sk = smem + 2 * kMaxLevels;            // [B] a staged run's keys
+  int* wpreds = smem;                         // [kWindow][kPredStride]
+  int* ts = wpreds + kWindow * kPredStride;   // [kWindow] clamped op types
+  int* qs = ts + kWindow;                     // [kWindow] keys
+  int* vs = qs + kWindow;                     // [kWindow] vals
+  int* hts = vs + kWindow;                    // [kWindow] inserts' heights
+  unsigned* chain = (unsigned*)(hts + kWindow);   // [kWindow][2] rng keys
+  int* preds2 = (int*)(chain + 2 * kWindow);  // [kMaxLevels] the median's
+  int* sk = preds2 + kMaxLevels;              // [B] a staged run's keys
   int* sv = sk + B;                           // [B] and vals
   const size_t tab = (size_t)s * (size_t)L * (size_t)a.cap;
   const size_t vec = (size_t)s * (size_t)a.cap;
@@ -346,152 +553,114 @@ __global__ void __launch_bounds__(kWarp) apply_ops_kernel(Args a) {
   sh.cap = a.cap;
   sh.levels = L;
   sh.width = B;
-  // warp-uniform scalars, written back at the end
+  // warp 0's uniform scalars and the rng warp's key, written back at the end
   int n = a.n[s], free_top = a.free_top[s], bump = a.bump[s];
   unsigned k0 = a.rng[2 * s], k1 = a.rng[2 * s + 1];
+  unsigned long long stood = 0, resumed = 0, resumed_steps = 0;
 
-  for (int i = 0; i < len; ++i) {
-    const long long o = start + i;
-    const int t = min(max(a.op_types[o], (int)kRead), (int)kDelete);
-    const int q = a.op_keys[o], v = a.op_vals[o];
-    int x;
-    const int2 c = locate<kForesight>(sh, q, preds, a.max_steps, lane, x);
-    int result = 0;
-    if (!kFat) {
-      const bool found = c.y == q;
-      if (t == kRead) {
-        result = found;
-      } else if (t == kInsert) {
-        const int h = split_and_draw(k0, k1, L, a.ref_ctz);
-        int nid;
-        if (found) {
-          if (lane == 0) sh.vals[c.x] = v;      // upsert
-        } else if (alloc(sh, free_top, bump, nid)) {
-          splice<kForesight>(sh, nid, q, h, preds, lane);
-          if (lane == 0) sh.vals[nid] = v;
-          ++n;
-          result = 1;
+  for (int w0 = 0; w0 < len; w0 += kWindow) {
+    const int m = min(kWindow, len - w0);
+    if (tid < kWindow) {                      // the walk phase
+      if (tid < m) {
+        const long long o = start + w0 + tid;
+        const int q = a.op_keys[o];
+        ts[tid] = clamp_type(a.op_types[o]);
+        qs[tid] = q;
+        vs[tid] = a.op_vals[o];
+        int* row = wpreds + tid * kPredStride;
+        int x = kHead;
+        long long steps = 0;
+        if (!descend<kForesight>(sh, q, row, L - 1, x, a.max_steps, steps))
+          __trap();
+        // the lines the apply phase reads and no walk did, asked for
+        // now, all at once: each predecessor's height and key (the
+        // check's), the found node's height and two lowest records (a
+        // delete's), a fat owner's run and length
+        for (int l = 0; l < L; ++l) {
+          prefetch_l2(sh.height + row[l]);
+          prefetch_l2(sh.keys + row[l]);
         }
-      } else if (found) {
-        unsplice<kForesight>(sh, c.x, preds, free_top, lane);
-        --n;
-        result = 1;
-      }
-    } else {
-      const int owner = (c.y == q || x == kHead) ? c.x : x;
-      int* rk = sh.fat_keys + (size_t)owner * (size_t)B;
-      int* rv = sh.fat_vals + (size_t)owner * (size_t)B;
-      const int pos = count_below(rk, B, q, lane);
-      const int pos_c = min(pos, B - 1);
-      const bool present = pos < B && rk[pos_c] == q;
-      if (t == kRead) {
-        result = present;
-      } else if (t == kInsert) {
-        const int h = split_and_draw(k0, k1, L, a.ref_ctz);
-        const bool at_front = x == kHead && !present;
-        const int half = B / 2;
-        int nid;
-        if (present) {
-          if (lane == 0) {
-            atomicAdd(a.cases + kUpsert, 1ull);
-            rv[pos_c] = v;
+        const int2 c = record<kForesight>(sh, 0, x);
+        if (!kFat) {
+          prefetch_l2(sh.height + c.x);
+          for (int l = 0; c.y == q && l < min(L, 2); ++l) {
+            const size_t idx = (size_t)l * (size_t)sh.cap + (size_t)c.x;
+            prefetch_l2(kForesight ? (const void*)(sh.fused + idx)
+                                   : (const void*)(sh.nxt + idx));
           }
-        } else if (owner == kTail) {
-          if (lane == 0) atomicAdd(a.cases + kFirst, 1ull);
-          if (alloc(sh, free_top, bump, nid)) {
-            splice<kForesight>(sh, nid, q, h, preds, lane);
-            int* nk = sh.fat_keys + (size_t)nid * (size_t)B;
-            int* nv = sh.fat_vals + (size_t)nid * (size_t)B;
-            for (int e = lane; e < B; e += kWarp) {
-              nk[e] = e == 0 ? q : kKeyMax;
-              nv[e] = e == 0 ? v : kNullVal;
-            }
-            if (lane == 0) sh.nlen[nid] = 1;
-            ++n;
-            result = 1;
-          }
-        } else if (sh.nlen[owner] < B) {
-          if (lane == 0) atomicAdd(a.cases + kRoom, 1ull);
-          stage_row(rk, rv, sk, sv, B, lane);
-          const int len_owner = sh.nlen[owner];
-          for (int e = lane; e < B; e += kWarp) {
-            rk[e] = shifted_in([&](int j) { return sk[j]; }, e, pos, q);
-            rv[e] = shifted_in([&](int j) { return sv[j]; }, e, pos, v);
-          }
-          __syncwarp();
-          if (lane == 0) sh.nlen[owner] = len_owner + 1;
-          ++n;
-          __syncwarp();
-          if (at_front) set_node_min<kForesight>(sh, owner, q, preds, lane);
-          result = 1;
         } else {
-          if (lane == 0) atomicAdd(a.cases + kSplit, 1ull);
-          if (alloc(sh, free_top, bump, nid)) {
-            stage_row(rk, rv, sk, sv, B, lane);
-            const int new_min = sk[half];
-            // The median's predecessors: its level-0 one is the owner, so
-            // the new node lands after it and preds stays valid.
-            int x2;
-            locate<kForesight>(sh, new_min, preds2, a.max_steps, lane, x2);
-            splice<kForesight>(sh, nid, new_min, h, preds2, lane);
-            int* nk = sh.fat_keys + (size_t)nid * (size_t)B;
-            int* nv = sh.fat_vals + (size_t)nid * (size_t)B;
-            const bool into_lo = q < new_min;  // == is impossible: absent
-            auto lo_k = [&](int j) { return j < half ? sk[j] : kKeyMax; };
-            auto lo_v = [&](int j) { return j < half ? sv[j] : kNullVal; };
-            auto hi_k = [&](int j) {
-              return j < B - half ? sk[j + half] : kKeyMax;
-            };
-            auto hi_v = [&](int j) {
-              return j < B - half ? sv[j + half] : kNullVal;
-            };
-            for (int e = lane; e < B; e += kWarp) {
-              rk[e] = into_lo ? shifted_in(lo_k, e, pos, q) : lo_k(e);
-              rv[e] = into_lo ? shifted_in(lo_v, e, pos, v) : lo_v(e);
-              nk[e] = into_lo ? hi_k(e) : shifted_in(hi_k, e, pos - half, q);
-              nv[e] = into_lo ? hi_v(e) : shifted_in(hi_v, e, pos - half, v);
-            }
-            if (lane == 0) {
-              sh.nlen[owner] = into_lo ? half + 1 : half;
-              sh.nlen[nid] = into_lo ? B - half : B - half + 1;
-            }
-            ++n;
-            __syncwarp();
-            if (at_front) set_node_min<kForesight>(sh, owner, q, preds, lane);
-            result = 1;
+          const int owner = (c.y == q || x == kHead) ? c.x : x;
+          const size_t run = (size_t)owner * (size_t)B;
+          for (int e = 0; e < B; e += kWarp) {
+            prefetch_l2(sh.fat_keys + run + e);
+            prefetch_l2(sh.fat_vals + run + e);
           }
+          prefetch_l2(sh.nlen + owner);
         }
-      } else if (present) {                  // delete
-        stage_row(rk, rv, sk, sv, B, lane);
-        const int new_len = sh.nlen[owner] - 1;
-        for (int e = lane; e < B; e += kWarp) {
-          rk[e] = e < pos ? sk[e] : (e + 1 < B ? sk[e + 1] : kKeyMax);
-          rv[e] = e < pos ? sv[e] : (e + 1 < B ? sv[e + 1] : kNullVal);
+      }
+    } else {                                  // the rng warp
+      if (lane == 0) {
+        for (int j = 0; j < m; ++j) {
+          if (clamp_type(a.op_types[start + w0 + j]) != kInsert) continue;
+          chain[2 * j] = k0;
+          chain[2 * j + 1] = k1;
+          const uint2 next = threefry2x32(k0, k1, 0u, 0u);
+          k0 = next.x;
+          k1 = next.y;
         }
-        __syncwarp();
-        if (lane == 0) sh.nlen[owner] = new_len;
-        --n;
-        __syncwarp();
-        if (new_len == 0) {
-          if (lane == 0) atomicAdd(a.cases + kEmptied, 1ull);
-          unsplice<kForesight>(sh, owner, preds, free_top, lane);
-        } else if (new_len > 0 && pos == 0) {
-          if (lane == 0) atomicAdd(a.cases + kMinLane, 1ull);
-          set_node_min<kForesight>(sh, owner, 1 < B ? sk[1] : kKeyMax,
-                                   preds, lane);
-        } else if (lane == 0) {
-          atomicAdd(a.cases + kPlain, 1ull);
-        }
-        result = 1;
+      }
+      __syncwarp();
+      for (int j = lane; j < m; j += kWarp) {
+        if (clamp_type(a.op_types[start + w0 + j]) == kInsert)
+          hts[j] = draw_height(chain[2 * j], chain[2 * j + 1], L, a.ref_ctz);
       }
     }
-    if (lane == 0) a.results[o] = result;
-    __syncwarp();            // this op's writes before the next op's walk
+    __syncthreads();
+    for (int j = 0; tid < kWarp && j < m; ++j) {    // the apply phase
+      const long long o = start + w0 + j;
+      const int t = ts[j], q = qs[j], v = vs[j];
+      int* preds = wpreds + j * kPredStride;
+      int2 rec = make_int2(0, 0);
+      const bool ok =
+          lane >= L || stands<kForesight>(sh, preds[lane], lane, q, rec);
+      const unsigned bad = __ballot_sync(kFullMask, !ok);
+      int x = kHead;
+      int2 c = rec;                           // lane 0's: level 0's record
+      if (bad != 0) {
+        if (lane == 0) {
+          const int f = 31 - __clz((int)bad);  // the highest level failing
+          long long steps = 0;
+          x = f == L - 1 ? kHead : preds[f + 1];
+          if (!descend<kForesight>(sh, q, preds, f, x, a.max_steps, steps))
+            __trap();
+          c = record<kForesight>(sh, 0, x);
+          ++resumed;
+          resumed_steps += steps;
+        }
+        __syncwarp();                         // preds rewritten
+        x = __shfl_sync(kFullMask, x, 0);
+      } else {
+        x = preds[0];
+        if (lane == 0) ++stood;
+      }
+      c.x = __shfl_sync(kFullMask, c.x, 0);
+      c.y = __shfl_sync(kFullMask, c.y, 0);
+      const int result = apply_op<kForesight, kFat>(
+          a, sh, t, q, v, t == kInsert ? hts[j] : 0, x, c, preds, preds2,
+          sk, sv, n, free_top, bump, lane);
+      if (lane == 0) a.results[o] = result;
+      __syncwarp();          // this op's writes before the next op's check
+    }
+    __syncthreads();         // the window's writes before the next walks
   }
-  if (lane == 0) {
+  if (tid == 0) {
     a.n[s] = n;
     a.free_top[s] = free_top;
     a.bump[s] = bump;
+    atomicAdd(a.cases + kStood, stood);
+    atomicAdd(a.cases + kResumed, resumed);
+    atomicAdd(a.cases + kResumedSteps, resumed_steps);
+  } else if (tid == kWindow) {
     a.rng[2 * s] = k0;
     a.rng[2 * s + 1] = k1;
   }
@@ -499,8 +668,9 @@ __global__ void __launch_bounds__(kWarp) apply_ops_kernel(Args a) {
 
 template <bool kForesight, bool kFat>
 int launch(const Args& a, int shards, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * kMaxLevels + 2 * a.width) * sizeof(int);
-  apply_ops_kernel<kForesight, kFat><<<shards, kWarp, smem, stream>>>(a);
+  const size_t smem = (size_t)(kWindow * (kPredStride + 6) + kMaxLevels +
+                               2 * a.width) * sizeof(int);
+  apply_ops_kernel<kForesight, kFat><<<shards, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

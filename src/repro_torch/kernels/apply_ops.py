@@ -12,23 +12,24 @@ with a leading ``[S]`` axis; a monolithic list is a stack of one): shard
 ``s`` runs the ops ``[starts[s], starts[s] + lens[s])`` in order, and each
 op's result (found / inserted new / deleted, 0 or 1) comes back at its
 position in the sorted batch.  On CUDA tensors it launches
-``csrc/apply_ops.cu`` (one warp a shard) and counts the launch in
-``apply_ops_batch.launches``; on CPU tensors it runs
-``apply_ops_batch_plain``, the port's host loop
+``csrc/apply_ops.cu`` (one block a shard: a window of ``WINDOW`` read-only
+walks at once, then each op checked against the current state and applied
+in order) and counts the launch in ``apply_ops_batch.launches``; on CPU
+tensors it runs ``apply_ops_batch_plain``, the port's host loop
 (``core.skiplist.apply_ops_inplace`` on each shard's views); any other
 device raises.  A failed build or launch raises: there is no fallback.
 
 The kernel leaves every state array and the rng as the plain version does
-(and both as the reference does).  Two differences of signature: the walk
+(and both as the reference does).  One difference of signature: a walk
 runs under ``traversal_bound(L, cap)`` steps and past it the kernel traps
-(a corrupt table; the reference loops for ever), and a free-list pop with
-``free_top`` past ``cap`` reads ``free_list[cap - 1]``, the reference's
-clamped gather, where the plain version raises ``IndexError``.
+(a corrupt table; the reference loops for ever).
 
 The fat insert and delete cases the kernel runs are counted on the
 device, in ``fat_cases(device)``, in ``core.skiplist.FAT_CASES``' names
-(the plain version counts in ``FAT_CASES`` itself); read it once after a
-run, not per call: the read waits for the card.
+(the plain version counts in ``FAT_CASES`` itself), and so are the window
+checks, in ``window_checks(device)``: the ops whose recorded predecessors
+all stood, the ops that resumed a walk, and the resumed walks' steps.
+Read them once after a run, not per call: the read waits for the card.
 """
 from __future__ import annotations
 
@@ -42,13 +43,17 @@ from repro_torch.core import skiplist as sl
 from repro_torch.kernels import _build
 from repro_torch.kernels.foresight_traverse import traversal_bound
 
-# csrc/apply_ops.cu FatCase order
+# csrc/apply_ops.cu FatCase order, then its CheckCount order
 CASE_NAMES = ("insert_upsert", "insert_first", "insert_room",
               "insert_split", "delete_emptied", "delete_min", "delete_plain")
+CHECK_NAMES = ("ops_stood", "walks_resumed", "resumed_steps")
 MAX_LEVELS = 32          # kMaxLevels: one lane a level
-# a staged run's keys and vals, and two predecessor rows, in the default
-# 48 KiB of dynamic shared memory
-MAX_WIDTH = (48 * 1024 // 4 - 2 * MAX_LEVELS) // 2
+WINDOW = 256             # kWindow: the ops walked at once
+# In the default 48 KiB of dynamic shared memory: the window's predecessor
+# rows (kMaxLevels + 1 words an op), its op types, keys, vals, heights and
+# rng keys (6 words an op), the median's predecessors, and a staged run's
+# keys and vals
+MAX_WIDTH = (48 * 1024 // 4 - WINDOW * (MAX_LEVELS + 7) - MAX_LEVELS) // 2
 
 _REF_CTZ: Dict[torch.device, torch.Tensor] = {}
 _CASES: Dict[torch.device, torch.Tensor] = {}
@@ -106,16 +111,31 @@ def _device_table(cache: Dict, dev: torch.device, make) -> torch.Tensor:
     return cache[dev]
 
 
+def _counts(device) -> torch.Tensor:
+    """The device's counters: the fat cases, then the window checks."""
+    dev = _device(device)
+    return _device_table(_CASES, dev, lambda: torch.zeros(
+        len(CASE_NAMES) + len(CHECK_NAMES), dtype=torch.int64, device=dev))
+
+
 def fat_cases(device) -> Counter:
     """The fat cases the kernel ran on ``device`` since the last
     ``reset_fat_cases``, by name (one read from the card)."""
-    dev = _device(device)
-    counts = _device_table(_CASES, dev, lambda: torch.zeros(
-        len(CASE_NAMES), dtype=torch.int64, device=dev))
+    counts = _counts(device)[:len(CASE_NAMES)]
     return Counter(dict(zip(CASE_NAMES, counts.tolist())))
 
 
+def window_checks(device) -> Dict[str, int]:
+    """The kernel's checks on ``device`` since the last ``reset_fat_cases``
+    (one read from the card): ``ops_stood``, the ops whose recorded
+    predecessors all stood; ``walks_resumed``, the ops that walked again
+    below a level that failed; ``resumed_steps``, those walks' steps."""
+    counts = _counts(device)[len(CASE_NAMES):]
+    return dict(zip(CHECK_NAMES, counts.tolist()))
+
+
 def reset_fat_cases(device) -> None:
+    """Zero the device's counters: the fat cases and the window checks."""
     dev = _device(device)
     if dev in _CASES:
         _CASES[dev].zero_()
@@ -166,8 +186,7 @@ def _launch(stack: sl.SkipListState, op_types, keys, vals, starts, lens,
         return results
     ref_ctz = _device_table(_REF_CTZ, dev, lambda: torch.tensor(
         sl._REF_CTZ, dtype=torch.int32, device=dev))
-    cases = _device_table(_CASES, dev, lambda: torch.zeros(
-        len(CASE_NAMES), dtype=torch.int64, device=dev))
+    cases = _counts(dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     _build.launch(
         "apply_ops_launch",

@@ -17,6 +17,7 @@ import torch
 
 from repro.core import sharded as shd
 from repro.core import skiplist as sl
+from repro_torch.analysis.kernel_budget import constants
 from repro_torch.convert import (sharded_from_numpy, sharded_to_numpy,
                                  state_from_numpy, state_to_numpy)
 from repro_torch.core import sharded as tsh
@@ -219,6 +220,96 @@ def test_segment_passes_on_device_tensors_equal_the_host_lists(width):
         np.testing.assert_array_equal(v, arrays[k], err_msg=k)
 
 
+def _record(st, lvl: int, x: int):
+    """Node ``x``'s level-``lvl`` record as a walk reads it: (successor,
+    its key)."""
+    if st.foresight:
+        ptr, fk = st.fused[lvl, x].tolist()
+        return ptr, fk
+    ptr = int(st.nxt[lvl, x])
+    return ptr, int(st.keys[ptr])
+
+
+def _stands(st, p: int, lvl: int, q: int) -> bool:
+    """The kernel's check: ``p`` is the head, or linked at ``lvl`` with a
+    key below ``q``, and its record there foresees a key >= ``q``."""
+    linked = p == tsl.HEAD or (int(st.height[p]) > lvl and
+                               int(st.keys[p]) < q)
+    return linked and _record(st, lvl, p)[1] >= q
+
+
+def _resumed(st, preds, f: int, q: int):
+    """The walk resumed at level ``f`` from the level above's predecessor
+    (the head at the top) down to level 0: every level's predecessor."""
+    preds = list(preds)
+    x = tsl.HEAD if f == st.levels - 1 else preds[f + 1]
+    for lvl in range(f, -1, -1):
+        while True:
+            ptr, fk = _record(st, lvl, x)
+            if fk >= q:
+                break
+            x = ptr
+        preds[lvl] = x
+    return preds
+
+
+def _hot_stream(seed, n, keys):
+    """Runs of consecutive keys below and among the list's own, as a page
+    table's grants are: mostly inserts, and reads and deletes (types -1 ..
+    3), so that most of a window's ops land beside an earlier one's."""
+    rng = np.random.default_rng(seed)
+    ks = (int(keys[0]) - n // 2 + np.arange(n) % (n // 2 + 8)
+          ).astype(np.int32)
+    ops = rng.choice(np.array([-1, 0, 1, 1, 1, 1, 2, 3], np.int32), n)
+    return ops, ks, (ks * 5 + 3).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["spread", "hot"])
+@pytest.mark.parametrize("width", [1, 8])
+@pytest.mark.parametrize("foresight", [True, False])
+def test_window_predecessors_that_pass_the_check_are_the_fresh_walks(
+        foresight, width, kind):
+    """The kernel's window design on the plain version: every op of a
+    window of ``WINDOW`` walks on the window's start state (the eager
+    ``search``); the ops then apply one at a time.  Before each, a level
+    whose recorded predecessor passes the check holds the fresh walk's
+    predecessor, and the walk resumed below the highest level that fails
+    gives the fresh walk's every level.  ``hot``: a 3-level list and keys
+    beside each other, where most ops find a level failed."""
+    keys = np.sort(np.random.default_rng(width).choice(
+        SPAN, 60, replace=False)).astype(np.int32)
+    levels = 3 if kind == "hot" else 7
+    cap = 120 if width == 1 else 24
+    st = tsl.build(keys, keys * 2, capacity=cap, levels=levels,
+                   foresight=foresight, seed=4, node_width=width,
+                   device="cpu")
+    if kind == "hot":
+        stream = _hot_stream(5 + width, 96, keys)
+    else:
+        stream = _stream(7 + width, 120, keys, fill=8 * width)
+    ops, ks, vs = (a.tolist() for a in stream)
+    W, failed = tap.WINDOW, 0
+    for w0 in range(0, len(ks), W):
+        window = torch.tensor(ks[w0:w0 + W], dtype=torch.int32)
+        recorded = tsl.search(st, window).preds.tolist()
+        for j, q in enumerate(ks[w0:w0 + W]):
+            fresh = tsl.search(st, torch.tensor([q], dtype=torch.int32)
+                               ).preds[0].tolist()
+            ok = [_stands(st, p, lvl, q) for lvl, p in
+                  enumerate(recorded[j])]
+            for lvl in range(levels):
+                if ok[lvl]:
+                    assert recorded[j][lvl] == fresh[lvl], (w0 + j, lvl)
+            if not all(ok):
+                failed += 1
+                f = max(lvl for lvl in range(levels) if not ok[lvl])
+                assert _resumed(st, recorded[j], f, q) == fresh, w0 + j
+            tsl.apply_ops_inplace(st, ops[w0 + j:w0 + j + 1], [q],
+                                  vs[w0 + j:w0 + j + 1])
+    if kind == "hot":
+        assert failed > len(ks) // 2, failed
+
+
 class _Recorder:
     """A stand-in for the loaded library: records each launcher call."""
 
@@ -279,8 +370,20 @@ def test_wrapper_refuses_other_devices_and_wide_shapes():
         tap.apply_ops_batch(stack, e, e, e, torch.empty(1, dtype=torch.int32,
                                                         device="meta"),
                             torch.empty(1, dtype=torch.int32, device="meta"))
+    seg = [torch.empty(1, dtype=torch.int32, device="meta")] * 2
     deep = tsl.allocate((1,), 16, 33, foresight=True, device="meta")
     with pytest.raises(ValueError, match="at most 32 levels"):
-        tap._launch(deep, e, e, e, torch.empty(1, dtype=torch.int32,
-                                               device="meta"),
-                    torch.empty(1, dtype=torch.int32, device="meta"), 0)
+        tap._launch(deep, e, e, e, *seg, 0)
+    wide = tsl.allocate((1,), 16, 4, foresight=True, device="meta",
+                        node_width=tap.MAX_WIDTH + 1)
+    with pytest.raises(ValueError, match=f"node width {tap.MAX_WIDTH}"):
+        tap._launch(wide, e, e, e, *seg, 0)
+    # the limit is the launcher's shared memory at the kernel's window: a
+    # run of MAX_WIDTH fits the default 48 KiB, one lane more does not,
+    # and every configuration here (B <= 256) fits
+    c = constants((_build.SOURCE_DIR / "apply_ops.cu").read_text())
+    assert (c["kWindow"], c["kMaxLevels"]) == (tap.WINDOW, tap.MAX_LEVELS)
+    smem = lambda b: 4 * (c["kWindow"] * (c["kPredStride"] + 6)
+                          + c["kMaxLevels"] + 2 * b)
+    assert smem(tap.MAX_WIDTH) <= 48 * 1024 < smem(tap.MAX_WIDTH + 1)
+    assert tap.MAX_WIDTH >= 256

@@ -92,6 +92,22 @@ def _single_ops_both(js, ts, ops):
 
 
 @pytest.mark.parametrize("foresight", [True, False])
+def test_pop_past_cap_reads_the_last_free_slot_like_repro(foresight):
+    """Deletes of KEY_MAX push the tail on the free list again and again;
+    past ``capacity`` the pushes are dropped and ``free_top`` rises on.
+    The next insert pops ``free_list[capacity - 1]`` (the reference's
+    clamped gather) and lowers ``free_top`` by one, in both packages."""
+    kw = dict(capacity=8, levels=3, foresight=foresight, seed=3)
+    keys = np.array([5, 9, 13], np.int32)
+    js = sl.build(jnp.asarray(keys), jnp.asarray(keys * 2), **kw)
+    ts = tsl.build(keys, keys * 2, device="cpu", **kw)
+    _, ts2, flags = _single_ops_both(
+        js, ts, [("delete", KEY_MAX)] * 12 + [("insert", 7, 70)])
+    assert flags == [True] * 13
+    assert int(ts2.free_top) == 11 and int(ts2.free_list[7]) == tsl.TAIL
+
+
+@pytest.mark.parametrize("foresight", [True, False])
 def test_insert_and_delete_match_repro(foresight):
     js, ts = _start("built", foresight)
     present = int(_keys(200, 21, span=600)[10])
