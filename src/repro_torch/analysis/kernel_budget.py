@@ -260,6 +260,13 @@ def kernel_sources(csrc: Path) -> Dict[str, KernelSource]:
                 dims = _split_top(" ".join(m.group(2).split()))
                 ks = out[m.group(1)]
                 ks.block_dims = ks.block_dims + (_eval_int(dims[1], env),)
+        # cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(block), ...)
+        for m in re.finditer(r"cudaLaunchCooperativeKernel\(\s*(?:\([^()]*"
+                             r"\))?\s*(\w+)\s*(?:<[^<>;]*>)?\s*,\s*dim3\("
+                             r"[^()]*\)\s*,\s*dim3\(([^()]*)\)", src):
+            if m.group(1) in out:
+                ks = out[m.group(1)]
+                ks.block_dims = ks.block_dims + (_eval_int(m.group(2), env),)
     return out
 
 

@@ -72,6 +72,9 @@ CAPTURE_SEEDS = (
     "repro_torch.core.mesh_index:search_mesh",
     "repro_torch.core.mesh_index:apply_ops_mesh",
     "repro_torch.kernels.mesh_launch:search_kernel_mesh",
+    "repro_torch.core.skiplist:range_scan",
+    "repro_torch.core.skiplist:to_sorted_keys",
+    "repro_torch.core.sharded:range_scan_sharded",
 )
 
 #: the module that builds and launches the CUDA kernels

@@ -13,13 +13,19 @@ names those semantics here: in-place edits inside the ceiling, with seed
 ``seed + k`` for the k-th split or merge, bit-identical to the reference
 on every array, result and split or merge count.
 
+On the card every pass is one launch of ``csrc/rebalance.cu`` (K12,
+``kernels.rebalance``): the loops run on the device, nothing is read back
+to the host, and the split and merge counts come back as 0-d int32
+tensors on the card, as the reference's traced counts are.  The guard's
+presence search is one dense K3/K4 launch before it.  On the CPU the
+passes run their plain versions (``watermark_plain``, ``guard_plain``,
+``split_plain``, ``merge_plain``): host loops that read the shard counts
+each trip and take the same branches as the reference's ``lax.while_loop``
+/ ``lax.cond``.  Both run in place on a working copy; the public functions
+here clone first and leave their input unchanged.
+
 What differs from the reference, and why the results do not:
 
-* The loops run on the host, as the port's eager passes do, reading the
-  shard counts each trip; the reference's ``lax.while_loop`` /
-  ``lax.cond`` take the same branches.  Running them without a host sync
-  (captured under ``torch.compile(fullgraph=True)`` or a CUDA graph) is
-  still to do.
 * Watermark comparisons are made in float32, as the reference's traced
   ``int32 > python float`` is.
 * Ties pick the first extreme (``torch.argmax`` / ``argmin``, as ``jnp``).
@@ -34,8 +40,9 @@ from repro_torch.core.sharded import (HIGH_WATER, LOW_WATER, RebalanceStats,
                                       ShardedSkipList, route, search_sharded,
                                       shard_view, validate_watermarks)
 from repro_torch.core.skiplist import (KEY_MAX, NULL_VAL, OP_INSERT,
-                                       SkipListState, build, empty,
+                                       SkipListState, _clone, build, empty,
                                        sorted_live_kv, usable_capacity)
+from repro_torch.kernels import rebalance as rk
 
 _I32_MAX = 2**31 - 1
 
@@ -69,10 +76,10 @@ def cross_device_load(live, routed) -> DeviceLoadStats:
     return DeviceLoadStats(live, routed, ratio(live), ratio(routed))
 
 
-def live_shard_count(shl: ShardedSkipList) -> int:
-    """Shards with a real (below ``KEY_MAX``) boundary; the rest of the
-    axis is split headroom."""
-    return int((shl.boundaries < KEY_MAX).sum())
+def live_shard_count(shl: ShardedSkipList) -> torch.Tensor:
+    """Shards with a real (below ``KEY_MAX``) boundary, [] int32; the rest
+    of the axis is split headroom."""
+    return (shl.boundaries < KEY_MAX).sum(dtype=torch.int32)
 
 
 def _dead_shard(capacity: int, levels: int, foresight: bool,
@@ -107,12 +114,110 @@ def pad_shards(shl: ShardedSkipList, max_shards: int) -> ShardedSkipList:
 
 
 # ---------------------------------------------------------------------------
-# Fixed-shape structural edits
+# The passes: a working copy, then one K12 launch (the plain version on CPU)
+# ---------------------------------------------------------------------------
+
+def working_copy(shl: ShardedSkipList) -> ShardedSkipList:
+    """A clone of every tensor, boundaries included, for in-place passes."""
+    return ShardedSkipList(_clone(shl.shards), shl.boundaries.clone())
+
+
+def split_shard_traced(shl: ShardedSkipList, s, at_key, *, seed=0
+                       ) -> ShardedSkipList:
+    """Split shard ``s`` at ``at_key`` without changing the shard axis.
+
+    Shards right of ``s`` shift one slot toward the tail and the last
+    (dead) slot drops off; the left half keeps keys ``< at_key`` (rebuilt
+    with ``seed``), the right the rest (``seed + 1``), both at build fill.
+    ``s`` and ``at_key`` may be ints or 0-d tensors (on the card they stay
+    there).  Preconditions, as in the reference, which its callers
+    guarantee and nothing here checks: the last slot is dead and
+    ``at_key`` lies inside shard ``s``'s range (halves that do not fit the
+    fill mass lose keys there as they do here).
+    """
+    out = working_copy(shl)
+    rk.rebalance_pass(out, "split", s=s, at=at_key, seed=seed)
+    return out
+
+
+def merge_shards_traced(shl: ShardedSkipList, s, *, seed=0
+                        ) -> ShardedSkipList:
+    """Merge shards ``s`` and ``s + 1`` in place (rebuilt with ``seed``);
+    the shards right of them shift left and a dead slot appends.
+    Preconditions (the watermark pass's): both shards are live and their
+    keys fit the build-fill mass."""
+    out = working_copy(shl)
+    rk.rebalance_pass(out, "merge", s=s, seed=seed)
+    return out
+
+
+def watermark_rebalance_traced(shl: ShardedSkipList, *,
+                               high_water: float = HIGH_WATER,
+                               low_water: float = LOW_WATER,
+                               max_shards: int = 0, seed=0
+                               ) -> Tuple[ShardedSkipList, RebalanceStats]:
+    """Split the fullest shard above ``high_water`` while dead slots remain
+    (``seed + k`` for the k-th), then merge the adjacent live pair of least
+    combined count that fits under it and has a shard below ``low_water``
+    (``seed + j``); each loop runs at most ``S`` times.  The counts are
+    0-d int32 tensors on the state's device."""
+    out = working_copy(shl)
+    stats = watermark_rebalance_inplace(out, high_water=high_water,
+                                        low_water=low_water,
+                                        max_shards=max_shards, seed=seed)
+    return out, stats
+
+
+def watermark_rebalance_inplace(shl: ShardedSkipList, *,
+                                high_water: float = HIGH_WATER,
+                                low_water: float = LOW_WATER,
+                                max_shards: int = 0, seed=0
+                                ) -> RebalanceStats:
+    """``watermark_rebalance_traced`` on ``shl`` itself."""
+    validate_watermarks(high_water, low_water)
+    counts = rk.rebalance_pass(shl, "watermark", high_water=high_water,
+                               low_water=low_water, max_shards=max_shards,
+                               seed=seed)
+    return RebalanceStats(counts[0], counts[1])
+
+
+def exhaustion_guard_traced(shl: ShardedSkipList, op_types, keys, *,
+                            max_shards: int = 0, seed=0
+                            ) -> Tuple[ShardedSkipList, torch.Tensor]:
+    """Split ahead of any shard this batch's new inserts would overfill.
+
+    A shard's projection is ``n_s`` + the distinct new keys routed to it.
+    Every distinct insert counts as new first; only if some shard could
+    overflow is the presence search's answer used.  The worst shard splits
+    at the median of its live and incoming keys (the next larger key where
+    the median is the smallest), with ``seed + k``, until every projection
+    fits, the dead slots run out, the keys are indivisible or ``S``
+    splits ran.  Contents never change.  The split count is a 0-d int32
+    tensor on the state's device.
+    """
+    out = working_copy(shl)
+    return out, exhaustion_guard_inplace(out, op_types, keys,
+                                         max_shards=max_shards, seed=seed)
+
+
+def exhaustion_guard_inplace(shl: ShardedSkipList, op_types, keys, *,
+                             max_shards: int = 0, seed=0) -> torch.Tensor:
+    """``exhaustion_guard_traced`` on ``shl`` itself: the split count."""
+    dev = shl.device
+    op_types = torch.as_tensor(op_types, device=dev).to(torch.int32)
+    keys = torch.as_tensor(keys, device=dev).to(torch.int32)
+    if keys.shape[0] == 0:
+        return torch.zeros((), dtype=torch.int32, device=dev)
+    return rk.rebalance_pass(shl, "guard", op_types=op_types, keys=keys,
+                             max_shards=max_shards, seed=seed)[0]
+
+
+# ---------------------------------------------------------------------------
+# The plain versions: host loops over fixed-shape structural edits
 # ---------------------------------------------------------------------------
 
 def _take(t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """``t[src]``; the uint32 ``rng`` is gathered as int32 bits (CUDA has
-    no uint32 indexing kernel)."""
+    """``t[src]``; the uint32 ``rng`` is gathered as int32 bits."""
     if t.dtype == torch.uint32:
         return t.view(torch.int32)[src].view(torch.uint32)
     return t[src]
@@ -134,22 +239,12 @@ def _place(shl: ShardedSkipList, src: torch.Tensor, slots
     return out
 
 
-def split_shard_traced(shl: ShardedSkipList, s, at_key, *, seed=0
-                       ) -> ShardedSkipList:
-    """Split shard ``s`` at ``at_key`` without changing the shard axis.
-
-    Shards right of ``s`` shift one slot toward the tail and the last
-    (dead) slot drops off; the left half keeps keys ``< at_key`` (rebuilt
-    with ``seed``), the right the rest (``seed + 1``), both at build fill.
-    Preconditions, as in the reference, which its callers guarantee and
-    nothing here checks: the last slot is dead and ``at_key`` lies inside
-    shard ``s``'s range (halves that do not fit the fill mass lose keys
-    there as they do here).
-    """
+def split_plain(shl: ShardedSkipList, s: int, at_key: int, *, seed=0
+                ) -> ShardedSkipList:
+    """The split of ``split_shard_traced`` with host indices."""
     S, dev = shl.n_shards, shl.device
     cap, L, fs, nw = (shl.shard_capacity, shl.levels, shl.foresight,
                       shl.node_width)
-    s, at_key = int(s), int(at_key)
     shard = shard_view(shl.shards, s)
     ks, vs = sorted_live_kv(shard)
     n = int(shard.n)
@@ -170,16 +265,11 @@ def split_shard_traced(shl: ShardedSkipList, s, at_key, *, seed=0
                            boundaries)
 
 
-def merge_shards_traced(shl: ShardedSkipList, s, *, seed=0
-                        ) -> ShardedSkipList:
-    """Merge shards ``s`` and ``s + 1`` in place (rebuilt with ``seed``);
-    the shards right of them shift left and a dead slot appends.
-    Preconditions (the watermark pass's): both shards are live and their
-    keys fit the build-fill mass."""
+def merge_plain(shl: ShardedSkipList, s: int, *, seed=0) -> ShardedSkipList:
+    """The merge of ``merge_shards_traced`` with a host index."""
     S, dev = shl.n_shards, shl.device
     cap, L, fs, nw = (shl.shard_capacity, shl.levels, shl.foresight,
                       shl.node_width)
-    s = int(s)
     a, b = shard_view(shl.shards, s), shard_view(shl.shards, s + 1)
     ka, va = sorted_live_kv(a)
     kb, vb = sorted_live_kv(b)
@@ -202,38 +292,24 @@ def merge_shards_traced(shl: ShardedSkipList, s, *, seed=0
                            boundaries)
 
 
-# ---------------------------------------------------------------------------
-# Passes: watermark re-levelling and the batch exhaustion guard
-# ---------------------------------------------------------------------------
-
-def _ceiling(shl: ShardedSkipList, max_shards: int) -> int:
-    """The live-shard ceiling: the axis, or ``max_shards`` if smaller."""
-    S = shl.n_shards
-    return min(int(max_shards), S) if max_shards else S
+def _live(shl: ShardedSkipList) -> int:
+    return int(live_shard_count(shl))
 
 
-def _f32(x: float) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32)
-
-
-def watermark_rebalance_traced(shl: ShardedSkipList, *,
-                               high_water: float = HIGH_WATER,
-                               low_water: float = LOW_WATER,
-                               max_shards: int = 0, seed=0
-                               ) -> Tuple[ShardedSkipList, RebalanceStats]:
-    """Split the fullest shard above ``high_water`` while dead slots remain
-    (``seed + k`` for the k-th), then merge the adjacent live pair of least
-    combined count that fits under it and has a shard below ``low_water``
-    (``seed + j``); each loop runs at most ``S`` times."""
-    validate_watermarks(high_water, low_water)
+def watermark_plain(shl: ShardedSkipList, *, high_water: float,
+                    low_water: float, max_shards: int, seed=0
+                    ) -> Tuple[ShardedSkipList, int, int]:
+    """The watermark pass's host loops: (state, splits, merges)."""
     S = shl.n_shards
     usable = usable_capacity(shl.shard_capacity, shl.node_width)
-    ceil_ = _ceiling(shl, max_shards)
-    hi_mark, lo_mark = _f32(high_water * usable), _f32(low_water * usable)
+    ceil_ = rk.ceiling(S, max_shards)
+    hi, lo = rk.marks(usable, high_water, low_water)
+    hi_mark = torch.tensor(hi, dtype=torch.float32)
+    lo_mark = torch.tensor(lo, dtype=torch.float32)
     seed = int(seed)
 
     splits = 0
-    while splits < S and live_shard_count(shl) < ceil_:
+    while splits < S and _live(shl) < ceil_:
         ns = shl.shards.n.cpu()
         ov = (ns.to(torch.float32) > hi_mark) & (ns >= 2)
         if not bool(ov.any()):
@@ -241,11 +317,11 @@ def watermark_rebalance_traced(shl: ShardedSkipList, *,
         s = int(torch.argmax(torch.where(ov, ns, -1)))
         ks, _ = sorted_live_kv(shard_view(shl.shards, s))
         at = int(ks[int(ns[s]) // 2])            # median; keys are unique
-        shl = split_shard_traced(shl, s, at, seed=seed + splits)
+        shl = split_plain(shl, s, at, seed=seed + splits)
         splits += 1
 
     merges = 0
-    while merges < S and live_shard_count(shl) > 1:
+    while merges < S and _live(shl) > 1:
         ns, b = shl.shards.n.cpu(), shl.boundaries.cpu()
         comb = ns[:-1] + ns[1:]
         ok = (b[1:] < KEY_MAX) & (comb.to(torch.float32) <= hi_mark) & (
@@ -254,27 +330,17 @@ def watermark_rebalance_traced(shl: ShardedSkipList, *,
         if not bool(ok.any()):
             break
         s = int(torch.argmin(torch.where(ok, comb, _I32_MAX)))
-        shl = merge_shards_traced(shl, s, seed=seed + merges)
+        shl = merge_plain(shl, s, seed=seed + merges)
         merges += 1
-    return shl, RebalanceStats(splits, merges)
+    return shl, splits, merges
 
 
-def exhaustion_guard_traced(shl: ShardedSkipList, op_types, keys, *,
-                            max_shards: int = 0, seed=0
-                            ) -> Tuple[ShardedSkipList, int]:
-    """Split ahead of any shard this batch's new inserts would overfill.
-
-    A shard's projection is ``n_s`` + the distinct new keys routed to it.
-    Every distinct insert counts as new first; only if some shard could
-    overflow is one presence search paid for.  The worst shard splits at
-    the median of its live and incoming keys (the next larger key where
-    the median is the smallest), with ``seed + k``, until every projection
-    fits, the dead slots run out, the keys are indivisible or ``S``
-    splits ran.  Contents never change.
-    """
+def guard_plain(shl: ShardedSkipList, op_types, keys, *, max_shards: int,
+                seed=0) -> Tuple[ShardedSkipList, int]:
+    """The exhaustion guard's host loop: (state, splits)."""
     S, dev = shl.n_shards, shl.device
     usable = usable_capacity(shl.shard_capacity, shl.node_width)
-    ceil_ = _ceiling(shl, max_shards)
+    ceil_ = rk.ceiling(S, max_shards)
     op_types = torch.as_tensor(op_types, device=dev).to(torch.int32)
     keys = torch.as_tensor(keys, device=dev).to(torch.int32)
     if keys.shape[0] == 0:
@@ -300,8 +366,7 @@ def exhaustion_guard_traced(shl: ShardedSkipList, op_types, keys, *,
     while splits < S:
         sid, add = count(shl, new_mask)
         proj = shl.shards.n + add
-        if not (bool((proj > usable).any())
-                and live_shard_count(shl) < ceil_):
+        if not (bool((proj > usable).any()) and _live(shl) < ceil_):
             break
         s = int(torch.argmax(torch.where(proj > usable, proj, -1)))
         shard = shard_view(shl.shards, s)
@@ -315,6 +380,6 @@ def exhaustion_guard_traced(shl: ShardedSkipList, op_types, keys, *,
             at = int(bigger.min()) if bigger.numel() else KEY_MAX
         if at >= KEY_MAX:                        # indivisible key mass
             break
-        shl = split_shard_traced(shl, s, at, seed=seed + splits)
+        shl = split_plain(shl, s, at, seed=seed + splits)
         splits += 1
     return shl, splits

@@ -33,8 +33,10 @@ What differs from the reference, and why the results do not:
   ``empty_sharded`` with ``S > 1``) rebalances in place inside that
   ceiling (``core.rebalance_traced``), as the reference does; so does
   every state of the mesh index, which the reference applies under
-  ``shard_map`` (``apply_ops_sharded``'s private ``_in_place``).
-* The eager searches (``search_sharded``, ``range_scan_sharded``) index
+  ``shard_map`` (``apply_ops_sharded``'s private ``_in_place``).  On the
+  card those in-place passes, the scans and ``search_sharded`` run
+  hand-written kernels and read nothing back.
+* The plain searches (``search_sharded``, ``range_scan_sharded``) index
   the flattened stack as ``(sid * L + lvl) * cap + x``, and under the fat
   layout its runs as ``(sid * cap + node) * B + lane``, which the
   reference computes in int32.  Past ``S * L * cap`` or ``S * cap * B =
@@ -247,10 +249,18 @@ def search_sharded(shl: ShardedSkipList, queries
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched lookup across the partitioned index: (found [B], vals [B]).
 
-    Each lane walks only its own shard, from that shard's effective top
-    level: ``core.skiplist.search_fast`` with one more index term.
+    Each lane walks only its own shard.  On the card that is one dense
+    K3/K4 launch (``kernels.ops.search_kernel_sharded(cluster=False)``,
+    fat through K9), with nothing read back; on the CPU its plain version,
+    ``core.skiplist.search_fast`` with one more index term, from each
+    shard's effective top level.  Both refuse a stack past the reference's
+    int32 index first (``check_stack_index``).
     """
     check_stack_index(shl)
+    if shl.device.type == "cuda":
+        from repro_torch.kernels import ops
+        r = ops.search_kernel_sharded(shl, queries, cluster=False)
+        return r.found, r.vals
     q = torch.as_tensor(queries, device=shl.device).to(torch.int32)
     sid = route(shl.boundaries, q)
     gather = _stack_gather(shl, sid)
@@ -291,9 +301,26 @@ def range_scan_sharded(shl: ShardedSkipList, lo, hi, max_out: int
     shard's head.  Returns (keys [max_out], vals [max_out], count []);
     unused slots hold KEY_MAX / NULL_VAL.  The walk stops where the
     reference's fixed ``max_out + S`` iterations stop changing anything;
-    the fat layout walks a (shard, node, lane) cursor instead.
+    the fat layout walks a (shard, node, lane) cursor instead.  Runs
+    through ``kernels.range_scan.range_scan_batch`` (on the card one
+    launch, with nothing read back; on the CPU
+    ``range_scan_sharded_plain``), after ``check_stack_index``.
     """
+    from repro_torch.kernels import range_scan as rs
+
     check_stack_index(shl)
+    dev = shl.device
+    k, v, c = rs.range_scan_batch(shl.shards, shl.boundaries,
+                                  rs.bound_lanes(lo, dev),
+                                  rs.bound_lanes(hi, dev), max_out)
+    return k[0], v[0], c[0]
+
+
+def range_scan_sharded_plain(shl: ShardedSkipList, lo, hi, max_out: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """``range_scan_sharded``'s host loop (the scan kernel's plain
+    version)."""
     lo, hi = _to_i32(lo), _to_i32(hi)
     S, dev = shl.n_shards, shl.device
     sid = int(route(shl.boundaries, torch.tensor([lo]))[0])
@@ -655,40 +682,68 @@ def apply_ops_sharded(shl: ShardedSkipList, op_types, keys, vals, *,
     would exhaust (``_exhaustion_guard``) and a post-pass re-levels the
     watermarks; ``seed`` feeds the towers of those rebuilds.  On a state
     with a static ceiling, or with ``_in_place`` (the mesh index, which
-    the reference applies under ``shard_map``), both passes are the
-    in-place passes of ``core.rebalance_traced`` and the shard axis keeps
-    its length.
+    the reference applies under ``shard_map``, and the page table), both
+    passes are the in-place passes of ``core.rebalance_traced`` on one
+    clone, around the update kernel (``_apply_in_place_passes``), and the
+    shard axis keeps its length.
     """
     dev = shl.device
     op_types, keys, vals = (torch.as_tensor(a, device=dev).to(torch.int32)
                             for a in (op_types, keys, vals))
-    in_place = False
+    if rebalance and (_in_place or _has_static_ceiling(shl)):
+        return _apply_in_place_passes(shl, op_types, keys, vals,
+                                      high_water=high_water,
+                                      low_water=low_water,
+                                      max_shards=max_shards, seed=seed)
     if rebalance:
-        in_place = _in_place or _has_static_ceiling(shl)
-        if in_place:
-            from repro_torch.core import rebalance_traced as rbt
-            shl, _ = rbt.exhaustion_guard_traced(
-                shl, op_types, keys, max_shards=max_shards, seed=seed)
-        else:
-            shl, _ = _exhaustion_guard(shl, op_types, keys,
-                                       max_shards=max_shards, seed=seed)
-    S, B = shl.n_shards, keys.shape[0]
-    sid = route(shl.boundaries, keys)
-    perm = torch.argsort(sid, stable=True)
-    starts, lens = shard_segments(sid[perm], S)
+        shl, _ = _exhaustion_guard(shl, op_types, keys,
+                                   max_shards=max_shards, seed=seed)
+    B = keys.shape[0]
     if B == 0:
         return shl, torch.zeros((0,), dtype=torch.int32, device=dev)
+    perm, starts, lens = _route_batch(shl, keys)
     out, results = _apply_segment_passes(shl, op_types, keys, vals, perm,
                                          starts, lens)
-    if in_place:
-        out, _ = rbt.watermark_rebalance_traced(
-            out, high_water=high_water, low_water=low_water,
-            max_shards=max_shards, seed=seed)
-    elif rebalance:
+    if rebalance:
         out, _ = _watermark_rebalance(out, high_water=high_water,
                                       low_water=low_water,
                                       max_shards=max_shards, seed=seed)
     return out, results
+
+
+def _route_batch(shl: ShardedSkipList, keys: torch.Tensor):
+    """(perm, starts, lens): the batch's stable sort by routed shard and
+    each shard's segment of it, on the state's device."""
+    sid = route(shl.boundaries, keys)
+    perm = torch.argsort(sid, stable=True)
+    starts, lens = shard_segments(sid[perm], shl.n_shards)
+    return perm, starts, lens
+
+
+def _apply_in_place_passes(shl: ShardedSkipList, op_types: torch.Tensor,
+                           keys: torch.Tensor, vals: torch.Tensor, *,
+                           high_water: float, low_water: float,
+                           max_shards: int, seed
+                           ) -> Tuple[ShardedSkipList, torch.Tensor]:
+    """The rebalancing apply at a fixed shard axis: one clone of the state
+    (the update kernel's), the exhaustion guard on it in place, the batch
+    routed on the boundaries as the guard left them, the update kernel,
+    then the watermark pass on the same clone.  On the card that is K12,
+    K11 and K12 again, with nothing read back."""
+    from repro_torch.core import rebalance_traced as rbt
+
+    if keys.shape[0] == 0:
+        return shl, torch.zeros((0,), dtype=torch.int32, device=shl.device)
+    work = rbt.working_copy(shl)
+    rbt.exhaustion_guard_inplace(work, op_types, keys,
+                                 max_shards=max_shards, seed=seed)
+    perm, starts, lens = _route_batch(work, keys)
+    results = _apply_segments_inplace(work.shards, op_types, keys, vals,
+                                      perm, starts, lens)
+    rbt.watermark_rebalance_inplace(work, high_water=high_water,
+                                    low_water=low_water,
+                                    max_shards=max_shards, seed=seed)
+    return work, results
 
 
 def _apply_segment_passes(shl: ShardedSkipList, op_types: torch.Tensor,
@@ -697,15 +752,26 @@ def _apply_segment_passes(shl: ShardedSkipList, op_types: torch.Tensor,
                           lens: torch.Tensor
                           ) -> Tuple[ShardedSkipList, torch.Tensor]:
     """Run each shard's segment ``[starts[s], starts[s] + lens[s])`` of the
-    route-sorted batch on a clone of the stack, in order (one launch of
-    ``kernels.apply_ops.apply_ops_batch`` on the card); unsort results.
+    route-sorted batch on a clone of the stack, in order; unsort results.
     ``perm``, ``starts`` and ``lens`` stay on the state's device."""
     shards = _clone(shl.shards)
+    results = _apply_segments_inplace(shards, op_types, keys, vals, perm,
+                                      starts, lens)
+    return shl._replace(shards=shards), results
+
+
+def _apply_segments_inplace(shards: SkipListState, op_types: torch.Tensor,
+                            keys: torch.Tensor, vals: torch.Tensor,
+                            perm: torch.Tensor, starts: torch.Tensor,
+                            lens: torch.Tensor) -> torch.Tensor:
+    """The segments on ``shards`` itself (one launch of
+    ``kernels.apply_ops.apply_ops_batch`` on the card); results [B] in
+    batch order."""
     res_sorted = apply_kernel.apply_ops_batch(
         shards, op_types[perm], keys[perm], vals[perm], starts, lens)
     results = torch.empty_like(keys)
     results[perm] = res_sorted
-    return shl._replace(shards=shards), results
+    return results
 
 
 # ---------------------------------------------------------------------------

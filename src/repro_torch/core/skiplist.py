@@ -265,44 +265,69 @@ def build_into(st: SkipListState, keys, vals, valid=None) -> None:
                   torch.cat([valid, valid.new_zeros(pad)])[::fill])
     _link_nodes(st, runs_k[:, 0], keys.new_full((n_nodes,), NULL_VAL),
                 node_valid)
-    n_live = n_in if valid is None else int(valid.sum())
+    n_live = (valid.sum(dtype=torch.int32) if valid is not None
+              else torch.full((), n_in, dtype=torch.int32, device=dev))
     st.fat_keys[2:n_nodes + 2, :fill] = runs_k
     st.fat_vals[2:n_nodes + 2, :fill] = runs_v
     first = torch.arange(n_nodes, dtype=torch.int32, device=dev) * fill
     st.nlen[2:n_nodes + 2] = torch.clamp(n_live - first, 0, fill)
-    st.n.fill_(n_live)
+    st.n.copy_(n_live)
 
 
 def _link_nodes(st: SkipListState, keys: torch.Tensor, vals: torch.Tensor,
                 valid: Optional[torch.Tensor]) -> None:
     """The scalar build of ``keys`` (already ``KEY_MAX`` where invalid)
-    into node ids ``2 .. n+1`` of ``st``, in place."""
+    into node ids ``2 .. n+1`` of ``st``, in place.
+
+    The reference's links, one level at a time: position ``i``'s successor
+    on level ``l`` is the first position ``j > i`` whose tower reaches
+    ``l`` (a reversed cumulative minimum), the head's the first at all.
+    Nothing is read back to the host.
+    """
     levels = st.levels
     n = keys.shape[0]
+    dev = st.device
     rng, sub = prng.split(st.rng)
     heights = sample_heights(sub, (n,), levels)
     if valid is not None:
         heights = torch.where(valid, heights, 0)   # padding: no tower, no links
-    n_live = n if valid is None else int(valid.sum())
+    n_live = (valid.sum(dtype=torch.int32) if valid is not None
+              else torch.full((), n, dtype=torch.int32, device=dev))
 
     st.keys[2:n + 2] = keys
     st.vals[2:n + 2] = vals
     st.height[2:n + 2] = heights
     table = st.fused if st.foresight else st.nxt
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
     for lvl in range(levels):
-        # The head and each node reaching this level point at the next
-        # node reaching it; the last one points at the tail.
-        pos = torch.nonzero(heights > lvl).squeeze(1)      # ascending
-        rows = torch.cat([pos.new_tensor([HEAD]), pos + 2])
-        ids = torch.cat([pos + 2, pos.new_tensor([TAIL])]).to(torch.int32)
-        nkey = torch.cat([keys[pos], keys.new_tensor([KEY_MAX])])
+        reach = heights > lvl
+        # first reaching position at or after each position (n: none)
+        first = torch.flip(torch.cummin(torch.flip(
+            torch.where(reach, pos, n), [0]), 0).values, [0])
+        succ = torch.cat([first[1:], first.new_full((1,), n)])
+        head = first[:1] if n else pos.new_full((1,), n)
+        ids, nkeys = _link_targets(torch.cat([head, succ]), keys, n)
         if st.foresight:
-            table[lvl, rows] = torch.stack([ids, nkey], dim=1)
+            rec = torch.stack([ids, nkeys], dim=1)
+            table[lvl, HEAD] = rec[0]
+            row = table[lvl, 2:n + 2]
+            row.copy_(torch.where(reach[:, None], rec[1:], row))
         else:
-            table[lvl, rows] = ids
-    st.n.fill_(n_live)
-    st.bump.fill_(n_live + 2)
+            table[lvl, HEAD] = ids[0]
+            row = table[lvl, 2:n + 2]
+            row.copy_(torch.where(reach, ids[1:], row))
+    st.n.copy_(n_live)
+    st.bump.copy_(n_live + 2)
     st.rng.copy_(rng)
+
+
+def _link_targets(succ_pos: torch.Tensor, keys: torch.Tensor, n: int):
+    """(node id, key) of successor positions (``n``: the tail)."""
+    tail = succ_pos >= n
+    ids = torch.where(tail, TAIL, succ_pos + 2).to(torch.int32)
+    nkeys = (keys[succ_pos.clamp(max=n - 1).long()] if n
+             else torch.zeros_like(succ_pos))
+    return ids, torch.where(tail, KEY_MAX, nkeys).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -839,10 +864,8 @@ def apply_ops(state: SkipListState, op_types, keys, vals
         torch.as_tensor(a, device=dev).to(torch.int32).reshape(-1)
         .contiguous() for a in (op_types, keys, vals))
     st = _clone(state)
-    stack = SkipListState(*(None if t is None else t.unsqueeze(0)
-                            for t in st))
     i32 = dict(dtype=torch.int32, device=dev)
-    results = apply_ops_batch(stack, op_types, keys, vals,
+    results = apply_ops_batch(_stack_of_one(st), op_types, keys, vals,
                               torch.zeros((1,), **i32),
                               torch.full((1,), keys.shape[0], **i32))
     return st, results
@@ -925,7 +948,18 @@ def _level0_record(state: SkipListState, x: int) -> Tuple[int, int]:
 
 
 def to_sorted_keys(state: SkipListState, max_n: int) -> torch.Tensor:
-    """Walk level 0 and return keys in order (KEY_MAX padded), for tests."""
+    """Walk level 0 and return keys in order (KEY_MAX padded), for tests:
+    ``max_n`` steps of ``kernels.range_scan.range_scan_batch`` (on the
+    card one launch, nothing read back)."""
+    from repro_torch.kernels import range_scan as rs
+
+    q = rs.bound_lanes(KEY_MIN, state.device)
+    return rs.range_scan_batch(_stack_of_one(state), None, q, q, max_n,
+                               raw=True)[0][0]
+
+
+def to_sorted_keys_plain(state: SkipListState, max_n: int) -> torch.Tensor:
+    """``to_sorted_keys``' host loop (the scan kernel's plain version)."""
     out, x = [], HEAD
     for _ in range(max_n):
         x, key = _level0_record(state, x)
@@ -933,14 +967,33 @@ def to_sorted_keys(state: SkipListState, max_n: int) -> torch.Tensor:
     return torch.tensor(out, dtype=torch.int32, device=state.device)
 
 
+def _stack_of_one(state: SkipListState) -> SkipListState:
+    return SkipListState(*(None if t is None else t.unsqueeze(0)
+                           for t in state))
+
+
 def range_scan(state: SkipListState, lo, hi, max_out: int
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Up to ``max_out`` (key, val) pairs with lo <= key < hi.
 
-    Positions with a search for ``lo``, then walks level 0.  Returns (keys
-    [max_out], vals [max_out], count []); unused slots hold KEY_MAX /
-    NULL_VAL.
+    Positions with a search for ``lo``, then walks level 0 (the fat layout
+    walks a (node, lane) cursor).  Returns (keys [max_out], vals
+    [max_out], count []); unused slots hold KEY_MAX / NULL_VAL.  Runs
+    through ``kernels.range_scan.range_scan_batch``: on the card one
+    launch, with nothing read back; on the CPU ``range_scan_plain``.
     """
+    from repro_torch.kernels import range_scan as rs
+
+    dev = state.device
+    k, v, c = rs.range_scan_batch(_stack_of_one(state), None,
+                                  rs.bound_lanes(lo, dev),
+                                  rs.bound_lanes(hi, dev), max_out)
+    return k[0], v[0], c[0]
+
+
+def range_scan_plain(state: SkipListState, lo, hi, max_out: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``range_scan``'s host loop (the scan kernel's plain version)."""
     lo, hi = _to_i32(lo), _to_i32(hi)
     if state.fat_keys is not None:
         return _fat_range_scan(state, lo, hi, max_out)

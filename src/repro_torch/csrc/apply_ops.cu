@@ -23,7 +23,7 @@
 //     tower height from the subkey's bits (the hash of index 0, XORed) as
 //     sample_heights does: 1 + the trailing one-bits, mapped through the
 //     reference's float32-log2 ctz table (ref_ctz, core/skiplist.py
-//     _REF_CTZ, passed in), capped at L;
+//     _REF_CTZ, passed in), capped at L (threefry.cuh);
 //   - allocation pops the free list, else bumps; with neither (free list
 //     empty, bump == cap) the insert writes nothing but the rng.  A pop
 //     with free_top past cap reads free_list[cap - 1], as the reference's
@@ -97,6 +97,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;          // lanes a warp; warp 0 applies the ops
@@ -157,40 +159,6 @@ struct Shard {
   int levels;
   int width;
 };
-
-__device__ __forceinline__ unsigned rotl(unsigned v, int r) {
-  return (v << r) | (v >> (32 - r));
-}
-
-// Threefry-2x32, 20 rounds (core/prng.py threefry2x32).
-__device__ __forceinline__
-uint2 threefry2x32(unsigned k0, unsigned k1, unsigned x0, unsigned x1) {
-  const unsigned ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl(x1, rot[i % 2][j]) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + (unsigned)(i + 1);
-  }
-  return make_uint2(x0, x1);
-}
-
-// split(rng) = (rng', sub): the tower height drawn from key (k0, k1)'s sub.
-__device__ __forceinline__
-int draw_height(unsigned k0, unsigned k1, int levels, const int* ref_ctz) {
-  const uint2 sub = threefry2x32(k0, k1, 0u, 1u);
-  const uint2 h = threefry2x32(sub.x, sub.y, 0u, 0u);
-  const unsigned ones = ~(h.x ^ h.y);          // trailing one-bits of bits
-  const int exact = ones == 0u ? 32 : __ffs((int)ones) - 1;
-  return min(ref_ctz[exact] + 1, levels);
-}
 
 __device__ __forceinline__ int clamp_type(int t) {
   return min(max(t, (int)kRead), (int)kDelete);

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # Every walk launcher takes its input pointers (queries last), the node and
 # key output pointers, the batch, its sizes, max_steps and the stream.  Every
 # pointer is c_void_p, or ctypes would cut it to 32 bits; ``fat`` may be
@@ -75,6 +76,18 @@ _SIGNATURES = {
     # ref_ctz, results, cases | shards, levels, cap, width, max_steps (the
     # update kernel, apply_ops.cu)
     "apply_ops_launch": [_P] * 21 + [_I, _I, _LL, _I, _LL, _P],
+    # fused, nxt, keys, vals, height, n, free_top, free_list, bump, rng,
+    # fat_keys, fat_vals, nlen, boundaries, k_sorted, pdist, pnew, given,
+    # ref_ctz, run_keys, run_vals, chunk_first, ctrl, counts | mode,
+    # shards, levels, cap, width, batch, usable, ceil, hi_mark, lo_mark,
+    # seed, max_steps (the rebalance passes, rebalance.cu)
+    "rebalance_launch": [_P] * 24 + [_I, _I, _I, _LL, _I, _LL, _LL, _I, _F,
+                                     _F, _LL, _LL, _P],
+    # fused, nxt, keys, vals, fat_keys, fat_vals, boundaries, lo, hi,
+    # out_keys, out_vals, out_count | scans, shards, levels, cap, width,
+    # max_out, raw, max_steps (the range scans, range_scan.cu)
+    "range_scan_launch": [_P] * 12 + [_LL, _I, _I, _LL, _I, _I, _I, _LL,
+                                      _P],
 }
 
 
