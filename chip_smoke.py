@@ -42,15 +42,18 @@ Phases, one JSON line each:
    array, the boundaries and the counts equal, the whole in-place apply
    equal to guard, update kernel, watermark; then the watermark pass at
    the page table's geometry (8 slots of 16384, L = 16) splitting a shard
-   filled to 0.8 (kernel and plain timed, the byte bound) and a pass with
-   nothing to do;
+   filled to 0.8 and the given merge of its halves (kernel and plain
+   timed, each with its phases from the kernel's clock, the byte bound)
+   and a pass with nothing to do;
 4d. ``scan_kernel_check``: the scan kernel (K13, ``csrc/range_scan.cu``,
-   ``kernels.range_scan``) against its plain version on the card, one
-   batch of scans a state (a list of 300 keys; 400 keys over 8 shards
+   ``kernels.range_scan``) against its plain version on the card, two
+   batches of scans a state (a list of 300 keys; 400 keys over 8 shards
    padded to 12, two shards emptied), node widths 1, 8, 128, both
    variants: ``max_out`` hit, ``lo`` past every key, ``hi`` at
    ``KEY_MAX``, spills across emptied shards and into the dead slots, a
-   fat run straddling ``lo``, ``to_sorted_keys``; keys, vals and counts
+   fat run straddling ``lo``, ``to_sorted_keys``; each batch at its
+   largest ``max_out`` (the warp's gather) and just below
+   ``range_scan.GATHER_FROM`` (lane 0's walk); keys, vals and counts
    equal, the sharded scans equal numpy;
 5. the paper's configuration, once per variant: 2^25 keys drawn from
    [0, 2^26) (Synchrobench: key range twice the size), vals = keys + 1,
@@ -1265,7 +1268,11 @@ def rebalance_kernel_check() -> dict:
             "ms": report["split_ms"], "plain_ms": report["split_plain_ms"],
             "bound_ms": report["split_bound_ms"], "bound_by": "bytes",
             "library_ms": None, "noop_pass_ms": report["noop_ms"],
-            "split_walk_nodes": report["split_walk_nodes"]}
+            "split_walk_nodes": report["split_walk_nodes"],
+            "split_phases_ms": report["split_phases_ms"],
+            "merge_ms": report["merge_ms"],
+            "merge_plain_ms": report["merge_plain_ms"],
+            "merge_bound_ms": report["merge_bound_ms"]}
 
 
 def slot_bytes(shl: shd.ShardedSkipList) -> int:
@@ -1274,43 +1281,83 @@ def slot_bytes(shl: shd.ShardedSkipList) -> int:
                if t is not None)
 
 
-def rebalance_times() -> dict:
-    """K12 at the page table's geometry: the watermark pass splitting one
-    shard filled to 0.8 (kernel and plain on clones, one run each; the
-    kernel's state checked against the plain version's), and a pass with
-    nothing to do (the median of ``KERNEL_REPS`` runs).  The byte bound of
-    the split: the run read once (a level-0 record and a val a key), the
-    slots right of it read and written once as they shift, and the two
-    halves written."""
+def k12_timed(shl: shd.ShardedSkipList, mode: str, *, reps: int = 1,
+              device_time: bool = False, **kw) -> tuple:
+    """K12 on ``reps`` fresh clones of ``shl`` (CUDA events around the
+    wrapper's call, one run a clone) and its plain version once on another
+    (the host clock), every kernel run held equal to the plain version;
+    with ``device_time`` also the kernel's own device time a call
+    (``torch.profiler``, 5 calls on fresh clones).  Returns (the last
+    run's state, its counts, {"ms": a run's times, "plain_ms", "phases_ms":
+    each run's first trip from ``rk.last_phases``, "device_ms"})."""
+    b = rbt.working_copy(shl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = rk.rebalance_pass_plain(b, mode, **kw)
+    torch.cuda.synchronize()
+    out = {"ms": [], "plain_ms": (time.perf_counter() - t0) * 1e3,
+           "phases_ms": [], "device_ms": None}
+    for _ in range(reps):
+        a = rbt.working_copy(shl)
+        got, ms = event_ms(lambda: rk.rebalance_pass(a, mode, **kw))
+        out["ms"].append(ms)
+        out["phases_ms"].append(rk.last_phases(a))
+        check(sharded_err(a, b) == 0 and torch.equal(got, want),
+              f"the timed K12 {mode} pass equals its plain version")
+    if device_time:
+        out["device_ms"] = device_breakdown(
+            lambda: rk.rebalance_pass(rbt.working_copy(shl), mode, **kw),
+            calls=5, walk="rebalance_kernel")["walk_device_ms"]
+    return a, got, out
+
+
+def page_table_states() -> tuple:
+    """The page table's index (``PagedCacheConfig(n_pages=2^15)``: 8 slots
+    of 16,384 node slots, 16 levels) empty, the same with one shard filled
+    to 0.8, and that shard's keys."""
     cfg = PagedCacheConfig(n_pages=PT_PAGES, page_tokens=PT_PAGE_TOKENS,
                            levels=PT_LEVELS, foresight=True, use_kernel=True,
                            rebalance=True, seed=SEED)
     base = PageTable(cfg, device=DEVICE).index
-    noop_ms = time_ms(lambda: rk.rebalance_pass(base, "watermark"),
-                      KERNEL_REPS)
     usable = sl.usable_capacity(base.shard_capacity, base.node_width)
     n = int(0.8 * usable)
     kk = torch.arange(1, n + 1, dtype=torch.int32, device=DEVICE) * 7
     full, _ = shd.apply_ops_sharded(base, torch.full_like(kk, sl.OP_INSERT),
                                     kk, kk)
-    a, b = rbt.working_copy(full), rbt.working_copy(full)
-    got, ms = event_ms(lambda: rk.rebalance_pass(a, "watermark"))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = rk.rebalance_pass_plain(b, "watermark")
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    check(sharded_err(a, b) == 0 and torch.equal(got, want)
-          and int(got[0]) >= 1, "the timed watermark pass split the full "
-                                "shard, as its plain version did")
+    return base, full, n
+
+
+def rebalance_times() -> dict:
+    """K12 at the page table's geometry: the watermark pass splitting one
+    shard filled to 0.8, then the given merge of its two halves (kernel and
+    plain on clones, one run each; the kernel's state checked against the
+    plain version's), each with its phases from the kernel's own clock, and
+    a pass with nothing to do (the median of ``KERNEL_REPS`` runs, the
+    wrapper's host time included).  The byte bound of a split or merge: the
+    run read once (a level-0 record and a val a key), the slots right of it
+    read and written once as they shift, and the two slots written."""
+    base, full, n = page_table_states()
+    noop_ms = time_ms(lambda: rk.rebalance_pass(base, "watermark"),
+                      KERNEL_REPS)
+    s = int(torch.argmax(full.shards.n))
+    split, got, st = k12_timed(full, "watermark")
+    check(int(got[0]) >= 1 and int(split.shards.n[s]) + int(
+        split.shards.n[s + 1]) == n, "the timed watermark pass split the "
+                                     "full shard, as its plain version did")
+    _, mgot, mt = k12_timed(split, "merge", s=s, seed=1)
+    check(int(mgot[1]) == 1, "the timed merge merged the two halves")
     S = full.n_shards
     moved = (S - 2) * 2 * slot_bytes(full) + 2 * slot_bytes(full)
     read = n * (8 + 4)
-    return {"noop_ms": noop_ms, "split_ms": ms, "split_plain_ms": plain_ms,
+    bound_ms = (moved + read) / HBM_BYTES_PER_S * 1e3
+    return {"noop_ms": noop_ms, "split_ms": st["ms"][0],
+            "split_plain_ms": st["plain_ms"],
             "split_counts": got.tolist(), "split_walk_nodes": n,
             "split_slots": S, "split_slot_capacity": full.shard_capacity,
-            "split_bound_bytes": moved + read,
-            "split_bound_ms": (moved + read) / HBM_BYTES_PER_S * 1e3}
+            "split_bound_bytes": moved + read, "split_bound_ms": bound_ms,
+            "split_phases_ms": st["phases_ms"][0], "merge_ms": mt["ms"][0],
+            "merge_plain_ms": mt["plain_ms"], "merge_bound_ms": bound_ms,
+            "merge_phases_ms": mt["phases_ms"][0]}
 
 
 def scan_cases(keys: np.ndarray, width: int) -> list:
@@ -1328,12 +1375,14 @@ def scan_cases(keys: np.ndarray, width: int) -> list:
 
 def scan_kernel_check() -> None:
     """The scan kernel (``csrc/range_scan.cu``) against its plain version,
-    both on the card, one batch of scans a state: a monolithic list of 300
-    keys and 400 keys over 8 shards of 128 slots padded to 12, the keys
-    of shards 2 and 3 deleted (node widths 1, 8 and 128, both variants);
-    ``max_out`` hit, ``lo`` past every key, ``hi`` at ``KEY_MAX``, spills
-    across emptied shards and into the dead slots, a fat run straddling
-    ``lo``, and ``to_sorted_keys``.  Keys, vals and counts equal, and the
+    both on the card, two batches of scans a state: a monolithic list of
+    300 keys and 400 keys over 8 shards of 128 slots padded to 12, the
+    keys of shards 2 and 3 deleted (node widths 1, 8 and 128, both
+    variants); ``max_out`` hit, ``lo`` past every key, ``hi`` at
+    ``KEY_MAX``, spills across emptied shards and into the dead slots, a
+    fat run straddling ``lo``, and ``to_sorted_keys``.  Each batch runs at
+    its cases' largest ``max_out`` (the warp's top-down gather) and at
+    ``GATHER_FROM - 1`` (a scalar scan walked by lane 0).  Keys, vals and counts equal, and the
     sharded scans equal a numpy oracle."""
     t0 = time.perf_counter()
     report = {"phase": "scan_kernel_check", "scans": 0, "batches": 0,
@@ -1363,31 +1412,38 @@ def scan_kernel_check() -> None:
             live = np.setdiff1d(skeys, gone)
             sh_cases = scan_cases(live, width) + [
                 (int(b[1]) + 1, int(b[6]), 200), (int(b[7]), sl.KEY_MAX, 100),
-                (int(live[-1]), sl.KEY_MAX, 3), (int(b[2]), int(b[4]), 10)]
+                (int(live[-1]), sl.KEY_MAX, 3), (int(b[2]), int(b[4]), 10),
+                (int(live[live < b[2]][-3]), int(b[6]), 30),
+                (int(live[-3]), sl.KEY_MAX, 30)]
             jobs = [(sl._stack_of_one(st), None, scan_cases(keys, width),
                      None),
                     (shl.shards, shl.boundaries, sh_cases, live)]
             for stack, bnd, cases, oracle in jobs:
-                m = max(c[2] for c in cases)
-                lo = torch.tensor([c[0] for c in cases], dtype=torch.int32,
-                                  device=DEVICE)
-                hi = torch.tensor([c[1] for c in cases], dtype=torch.int32,
-                                  device=DEVICE)
-                got = rs.range_scan_batch(stack, bnd, lo, hi, m)
-                want = rs.range_scan_batch_plain(stack, bnd, lo, hi, m)
-                err = max(int((g.long() - w.long()).abs().max())
-                          for g, w in zip(got, want))
-                report["max_abs_err"] = max(report["max_abs_err"], err)
-                check(err == 0, f"K13 equals its plain version on the card "
-                                f"({what}, {'sharded' if bnd is not None else 'list'})")
-                if oracle is not None:
-                    for i, (a, z, _) in enumerate(cases):
-                        sel = oracle[(oracle >= a) & (oracle < z)][:m]
-                        check(int(want[2][i]) == sel.size and np.array_equal(
-                            want[0][i, :sel.size].cpu().numpy(), sel),
-                            f"the sharded scan equals numpy ({what})")
-                report["scans"] += len(cases)
-                report["batches"] += 1
+                # the cases' largest max_out (the warp's gather), then one
+                # below GATHER_FROM (a scalar scan walked by lane 0)
+                for m in (max(c[2] for c in cases), rs.GATHER_FROM - 1):
+                    lo = torch.tensor([c[0] for c in cases],
+                                      dtype=torch.int32, device=DEVICE)
+                    hi = torch.tensor([c[1] for c in cases],
+                                      dtype=torch.int32, device=DEVICE)
+                    got = rs.range_scan_batch(stack, bnd, lo, hi, m)
+                    want = rs.range_scan_batch_plain(stack, bnd, lo, hi, m)
+                    err = max(int((g.long() - w.long()).abs().max())
+                              for g, w in zip(got, want))
+                    report["max_abs_err"] = max(report["max_abs_err"], err)
+                    where = "sharded" if bnd is not None else "list"
+                    check(err == 0, f"K13 equals its plain version on the "
+                                    f"card ({what}, {where}, max_out {m})")
+                    if oracle is not None:
+                        for i, (a, z, _) in enumerate(cases):
+                            sel = oracle[(oracle >= a) & (oracle < z)][:m]
+                            check(int(want[2][i]) == sel.size
+                                  and np.array_equal(
+                                      want[0][i, :sel.size].cpu().numpy(),
+                                      sel),
+                                  f"the sharded scan equals numpy ({what})")
+                    report["scans"] += len(cases)
+                    report["batches"] += 1
             for m in (1, 40, 305):
                 got = sl.to_sorted_keys(st, m)
                 want = sl.to_sorted_keys_plain(st, m)
@@ -3227,6 +3283,9 @@ STORE_UPDATES = 8192         # new keys ingested, then evicted
 # samples (every other key) keep 2^26 slots at L = ceil(log2 n) + 2 = 26.
 MONO_STORE_N, MONO_STORE_LEVELS = 2**24, 26
 SCAN_OUT = 2048
+SCAN_OUTS = (64, SCAN_OUT, 65536)   # the timed scans: the shortest the
+                                    # warp gathers (range_scan.GATHER_FROM),
+                                    # the store's and a very long one
 # The page pool: Llama-3-8B (src/repro/configs/llama3_8b.py: 32 layers, 8
 # KV heads of 128) keeps 32 * 2 * 8 * 128 * 2 B = 128 KiB of bf16 KV a
 # token, so 2^15 pages of 16 tokens are 64 GiB of KV beside 16 GB of
@@ -3289,17 +3348,20 @@ def check_batch(store: IndexedSampleStore, pipe: DataPipeline, step: int,
 SCAN_ROW = {}
 
 
-def scan_times(state: sl.SkipListState, lo: int, hi: int, max_out: int
+def scan_times(state: sl.SkipListState, lo: int, hi: int, max_out: int,
+               *, reps: int = KERNEL_REPS, device_time: bool = False
                ) -> dict:
-    """K13 on one scan of the store (kernel: the median of KERNEL_REPS
-    runs; plain: one run, both on the card), held equal; its byte bound:
-    the positioning walk's distinct records, each scanned key's level-0
-    record and val read once, the outputs written once."""
+    """K13 on one scan of the store (kernel: the median of ``reps`` runs;
+    plain: one run, both on the card), held equal; with ``device_time``
+    also the kernel's own device time a call (``torch.profiler``, 5
+    calls).  Its byte bound: the positioning walk's distinct records, each
+    scanned key's level-0 record and val read once, the outputs written
+    once."""
     stack = sl._stack_of_one(state)
     lo_t, hi_t = rs.bound_lanes(lo, DEVICE), rs.bound_lanes(hi, DEVICE)
-    got = rs.range_scan_batch(stack, None, lo_t, hi_t, max_out)
-    ms = time_ms(lambda: rs.range_scan_batch(stack, None, lo_t, hi_t,
-                                             max_out), KERNEL_REPS)
+    scan = lambda: rs.range_scan_batch(stack, None, lo_t, hi_t, max_out)
+    got = scan()
+    ms = time_ms(scan, reps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = rs.range_scan_batch_plain(stack, None, lo_t, hi_t, max_out)
@@ -3312,9 +3374,13 @@ def scan_times(state: sl.SkipListState, lo: int, hi: int, max_out: int
     count = int(got[2][0])
     rec = 8                       # foresight's record; base's ptr + key
     total = walk + count * (rec + 4) + max_out * 8 + 4
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "count": count, "bound_bytes": total,
-            "bound_ms": total / HBM_BYTES_PER_S * 1e3}
+    out = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           "count": count, "bound_bytes": total,
+           "bound_ms": total / HBM_BYTES_PER_S * 1e3}
+    if device_time:
+        out["device_ms"] = device_breakdown(
+            scan, calls=5, walk="range_scan_kernel")["walk_device_ms"]
+    return out
 
 
 def store_full_size(keys_np: np.ndarray, rows: torch.Tensor,
@@ -3497,19 +3563,27 @@ def store_full_size(keys_np: np.ndarray, rows: torch.Tensor,
         "scan_out": SCAN_OUT,
         "launches": launches_on(mlaunch, (mono, "group_by_key",
                                           "range_scan"))}
-    mreport["scan"] = scan_times(mstore.index, lo, FULL_SPAN, SCAN_OUT)
+    mreport["scans"] = {m: scan_times(mstore.index, lo, FULL_SPAN, m)
+                        for m in SCAN_OUTS}
+    mreport["scan"] = mreport["scans"][SCAN_OUT]
+    others = {m: {k: sc[k] for k in ("ms", "plain_ms", "bound_ms", "count")}
+              for m, sc in mreport["scans"].items() if m != SCAN_OUT}
     if foresight:
         _, _, source, replaces = KERNELS["range_scan"]
         sc = mreport["scan"]
         SCAN_ROW["row"] = {
             "name": "range_scan", "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0,
-            "max_abs_err": sc["max_abs_err"], "ms": sc["ms"],
-            "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
-            "bound_by": "bytes", "library_ms": None, "scan_out": SCAN_OUT,
-            "n": MONO_STORE_N, "base_ms": None}
+            "max_abs_err": max(x["max_abs_err"]
+                               for x in mreport["scans"].values()),
+            "ms": sc["ms"], "plain_ms": sc["plain_ms"],
+            "bound_ms": sc["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "scan_out": SCAN_OUT, "n": MONO_STORE_N,
+            "base_ms": None, "other_scans": others, "base_other_ms": None}
     else:
         SCAN_ROW["row"]["base_ms"] = mreport["scan"]["ms"]
+        SCAN_ROW["row"]["base_other_ms"] = {m: o["ms"]
+                                            for m, o in others.items()}
     lap("monolithic_checks_and_timing")
     mreport["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     mreport["stage_s"] = stage_s

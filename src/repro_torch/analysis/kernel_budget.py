@@ -239,13 +239,22 @@ class KernelSource:
     block_dims: Tuple[int, ...]    # block size of every launch site
 
 
+def included_headers(path: Path) -> str:
+    """The text of the ``csrc/*.cuh`` headers a source includes, in order
+    (their constants come before the source's own)."""
+    names = re.findall(r'#include\s+"(\w+\.cuh)"', path.read_text())
+    return "".join((path.parent / n).read_text() for n in names
+                   if (path.parent / n).exists())
+
+
 def kernel_sources(csrc: Path) -> Dict[str, KernelSource]:
     """Every ``__global__`` of ``csrc/*.cu``: its launch bounds and the
-    block size of its launches, by base name."""
+    block size of its launches, by base name (the constants of the
+    headers it includes read too)."""
     out: Dict[str, KernelSource] = {}
     for path in sorted(csrc.glob("*.cu")):
         src = path.read_text()
-        env = constants(src)
+        env = constants(included_headers(path) + src)
         for m in re.finditer(r"__global__\s+void\s+(?:__launch_bounds__\("
                              r"([^)]*)\)\s*)?(\w+)\s*\(", src):
             # without bounds a block may take the card's 1024 threads

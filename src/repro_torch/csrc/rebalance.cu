@@ -46,9 +46,13 @@
 //       decision (do, s) to a control record in device memory; a false do
 //       ends the loop for every block.  A batch that needs no split and no
 //       merge costs this one phase and no host read;
-//   (b) flatten: warp 0 of block 0 walks level 0 of the chosen shard (two
-//       for a merge) into a scratch run of (key, val), a fat run's live
-//       lanes copied by the warp;
+//   (b) flatten: the shard (two for a merge) gathered into a scratch run
+//       of (key, val) top-down (level_walk.cuh): the frontier starts at the
+//       head on level L - 1, and on each level every thread of the grid
+//       walks one segment cut at the nodes of the level above, counts it,
+//       and after a prefix sum over the grid writes its nodes in order; at
+//       level 0 it writes each node's (key, val), a fat node's live lanes
+//       (nlen of them) at its run's offset;
 //   (c) cut: one thread finds the split key (the watermark: the run's
 //       median; the guard: the (m / 2)-th key of the run merged with the
 //       shard's incoming keys, by a merge-path search, falling back to the
@@ -64,20 +68,25 @@
 //       each chunk, walked backwards, links every reaching position to the
 //       next one on each level of its tower.
 // The state is written inside the launch, so every load is a plain one:
-// no __ldg, no const __restrict__ on the state.  The flatten walk runs
+// no __ldg, no const __restrict__ on the state.  Every flatten walk runs
 // under max_steps (kernels/foresight_traverse.py traversal_bound) and
-// traps past it, as K11's walks do.
+// traps past it, as K11's walks do.  Thread 0 stamps the card's clock
+// (%globaltimer) at each phase of the first trip into the control record
+// (ctrl[cStamps ..], kStamps u64; zeros past a phase the trip did not
+// reach), where a measurement reads them.
 //
 // What bounds it: a pass that changes nothing costs the launch and one
-// grid sync.  A split or merge costs the flatten walk, one dependent load a
-// node (serial: a split is rare), and then moves the slots right of the
-// cut at the card's byte rate (every array of each slot read and written
-// once) and writes the rebuilt slots.
+// grid sync.  A split or merge costs the flatten (two walks and two grid
+// syncs a level, each walk about two dependent loads a segment), and then
+// moves the slots right of the cut at the card's byte rate (every array of
+// each slot read and written once) and writes the rebuilt slots.  A walk
+// of level 0 by one lane would cost one dependent load a node.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "level_walk.cuh"
 #include "threefry.cuh"
 
 namespace cg = cooperative_groups;
@@ -89,6 +98,8 @@ constexpr int kWarp = 32;
 constexpr int kMaxLevels = 32;
 constexpr int kChunk = 64;        // positions a thread links
 constexpr int kMaxBlocksPerSm = 4;
+constexpr int kMaxGridBlocks = 1024;  // the grid scan's partial sums
+constexpr int kMaxDevices = 64;
 constexpr int kKeyMax = 0x7fffffff;
 constexpr int kKeyMin = (int)0x80000000;
 constexpr int kNullVal = -1;
@@ -105,8 +116,12 @@ enum Ctrl {
   cDo, cKind, cS, cAt, cPhase, cNa, cNb, cLo, cHi, cAdd, cJobs,
   cJob0,                       // kJobFields a job from here
   kJobFields = 5,
-  kCtrlSize = cJob0 + 3 * kJobFields
+  cStamps = cJob0 + 3 * kJobFields,   // kStamps u64 from here
+  kStamps = 7,
+  kCtrlSize = cStamps + 2 * kStamps
 };
+// The stamps: the first trip's start, then the end of decide, flatten,
+// cut, shift, write and link.
 enum JobField { jSlot, jOff, jElems, jSeed, jDead };
 
 struct Args {
@@ -132,7 +147,9 @@ struct Args {
   int* run_keys;           // [2 * cap * B] scratch: the flattened runs
   int* run_vals;
   int* chunk_first;        // [2, L, chunks] scratch: per-chunk firsts
-  int* ctrl;               // [kCtrlSize]
+  int* front;              // [cap + 1] scratch: the gather's frontier
+  long long* sums;         // [kMaxGridBlocks] scratch: the grid scan's
+  int* ctrl;               // [kCtrlSize], 8-byte aligned
   int* counts;             // [2] splits, merges
   long long batch;
   long long cap;
@@ -154,15 +171,6 @@ __device__ __forceinline__ int fill_of(int width) {
 
 __device__ __forceinline__ long long chunks_of(long long cap) {
   return (cap - 2 + kChunk - 1) / kChunk;
-}
-
-// Node x's level-0 record in slot t: (successor, its key).
-template <bool kForesight>
-__device__ __forceinline__ int2 level0(const Args& a, int t, int x) {
-  const size_t idx = (size_t)t * a.levels * a.cap + (size_t)x;
-  if (kForesight) return a.fused[idx];
-  const int p = a.nxt[idx];
-  return make_int2(p, a.keys[(size_t)t * a.cap + p]);
 }
 
 // First index in sorted v[lo, hi) whose value is >= x (upper: > x).
@@ -284,49 +292,79 @@ __device__ void decide(const Args& a, int trip) {
 }
 
 // ---------------------------------------------------------------------------
-// (b) flatten (warp 0 of block 0)
+// (b) flatten (the grid)
 // ---------------------------------------------------------------------------
 
-// Walks slot t's level 0 and writes its live (key, val) pairs in order at
-// run[off ..]; returns how many (the same value in every lane).
+// Slot t as level_walk::gather sees it: every node kept above level 0; at
+// level 0 every node but the head, counted by its live elements (1, or a
+// fat node's nlen) and written at run[off + pos ..] below room.
 template <bool kForesight, bool kFat>
-__device__ int flatten(const Args& a, int t, long long off, long long room) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  const size_t base = (size_t)t * a.cap;
-  long long out = 0, steps = 0;
-  int x = kHead;
-  for (;;) {
-    int2 rec = make_int2(0, 0);
-    if (lane == 0) {
-      if (++steps > a.max_steps) __trap();     // a corrupt table
-      rec = level0<kForesight>(a, t, x);
-    }
-    x = __shfl_sync(kFullMask, rec.x, 0);
-    const int key = __shfl_sync(kFullMask, rec.y, 0);
-    if (x == kTail) break;
+struct SlotWalk {
+  const Args* a;
+  int t;
+  long long off, room;
+  __device__ size_t base() const { return (size_t)t * a->cap; }
+  __device__ int2 rec(int l, int x) const {
+    const size_t idx = ((size_t)t * a->levels + l) * a->cap + (size_t)x;
+    if (kForesight) return a->fused[idx];
+    const int p = a->nxt[idx];
+    return make_int2(p, a->keys[base() + p]);
+  }
+  __device__ int key(int x) const { return a->keys[base() + x]; }
+  __device__ int live(int y) const {
+    return kFat ? max(0, min(a->nlen[base() + y], a->width)) : 1;
+  }
+  __device__ long long weight(int l, int y, int) const {
+    if (l > 0) return 1;
+    return y == kHead ? 0 : live(y);
+  }
+  __device__ void emit(int y, int key, long long pos) const {
     if (!kFat) {
-      if (lane == 0 && out < room) {
-        a.run_keys[off + out] = key;
-        a.run_vals[off + out] = a.vals[base + x];
+      if (pos < room) {
+        a->run_keys[off + pos] = key;
+        a->run_vals[off + pos] = a->vals[base() + y];
       }
-      ++out;
-      continue;
+      return;
     }
-    const int* rk = a.fat_keys + (base + x) * a.width;
-    const int* rv = a.fat_vals + (base + x) * a.width;
-    for (int e = 0; e < a.width; e += kWarp) {
-      const int i = e + lane;
-      const int k = i < a.width ? rk[i] : kKeyMax;
-      const unsigned live = __ballot_sync(kFullMask, k != kKeyMax);
-      if (k != kKeyMax && out + i - e < room) {
-        a.run_keys[off + out + i - e] = k;
-        a.run_vals[off + out + i - e] = rv[i];
-      }
-      out += __popc(live);
-      if (live != kFullMask) break;          // the run's live lanes end
+    const size_t row = (base() + y) * a->width;
+    const int m = live(y);
+    for (int i = 0; i < m && pos + i < room; ++i) {
+      a->run_keys[off + pos + i] = a->fat_keys[row + i];
+      a->run_vals[off + pos + i] = a->fat_vals[row + i];
     }
   }
-  return (int)out;
+};
+
+// Gathers slot t's live (key, val) pairs in order at run[off ..]; returns
+// how many (the same value in every thread of the grid).  The gather
+// starts below the highest level the head links to a node on (every
+// thread reads the head's records alike): an empty slot costs no level.
+template <bool kForesight, bool kFat>
+__device__ long long flatten(const Args& a, const level_walk::Grid& team,
+                             int t, long long off, long long room) {
+  const SlotWalk<kForesight, kFat> ops{&a, t, off, room};
+  int top = a.levels;
+  while (top > 0 && ops.rec(top - 1, kHead).x == kTail) --top;
+  if (top == 0) return 0;
+  return level_walk::gather(team, ops, a.front, kHead, 1, top, kTail,
+                            kKeyMax, a.cap, a.max_steps);
+}
+
+// Phase (b): shard s, and s + 1 after it for a merge; the counts to ctrl.
+template <bool kForesight, bool kFat>
+__device__ void flatten_trip(const Args& a, const level_walk::Grid& team,
+                             int s, bool merge) {
+  const long long room = 2 * a.cap * a.width;
+  const long long na = flatten<kForesight, kFat>(a, team, s, 0, room);
+  long long nb = 0;
+  if (merge) {
+    const long long off = a.n[s];
+    nb = flatten<kForesight, kFat>(a, team, s + 1, off, room - off);
+  }
+  if (team.rank() == 0) {
+    a.ctrl[cNa] = (int)na;
+    if (merge) a.ctrl[cNb] = (int)nb;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -615,14 +653,24 @@ __device__ void link_chunks(const Args& a, int j, const Job& b,
   }
 }
 
+__device__ __forceinline__ unsigned long long clock_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// __launch_bounds__(kThreads, 2): with the block size alone ptxas cut the
+// kernel to 64 registers (four blocks a SM) and spilled the gather's.
 template <bool kForesight, bool kFat>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 rebalance_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   const long long gtid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long gsize = (long long)gridDim.x * blockDim.x;
   const long long gwarp = gtid / kWarp, nwarps = gsize / kWarp;
   volatile int* c = a.ctrl;
+  unsigned long long* stamp =
+      reinterpret_cast<unsigned long long*>(a.ctrl + cStamps);
   if (gtid == 0) {
     for (int i = 0; i < kCtrlSize; ++i) a.ctrl[i] = 0;
     a.counts[0] = 0;
@@ -630,24 +678,24 @@ rebalance_kernel(Args a) {
   }
   grid.sync();
   for (int trip = 0;; ++trip) {
+    const bool stamps = gtid == 0 && trip == 0;
+    if (stamps) stamp[0] = clock_ns();
     if (blockIdx.x == 0) decide(a, trip);
     grid.sync();
     if (!c[cDo]) break;
-    if (blockIdx.x == 0 && threadIdx.x < kWarp) {
+    if (stamps) stamp[1] = clock_ns();
+    {
       const int s = c[cS];
-      const long long room = 2 * a.cap * a.width;
-      const int na = flatten<kForesight, kFat>(a, s, 0, room);
-      if (threadIdx.x == 0) c[cNa] = na;
-      if (c[cKind] == kMergeTrip) {
-        const long long off = a.n[s];
-        const int nb = flatten<kForesight, kFat>(a, s + 1, off, room - off);
-        if (threadIdx.x == 0) c[cNb] = nb;
-      }
+      const bool merge = c[cKind] == kMergeTrip;
+      flatten_trip<kForesight, kFat>(a, level_walk::Grid{grid, a.sums}, s,
+                                     merge);
     }
     grid.sync();
+    if (stamps) stamp[2] = clock_ns();
     if (gtid == 0) cut(a);
     grid.sync();
     if (!c[cDo]) break;
+    if (stamps) stamp[3] = clock_ns();
     {
       const int S = a.shards, s = c[cS];
       const bool split = c[cKind] == kSplitTrip;
@@ -667,10 +715,12 @@ rebalance_kernel(Args a) {
       shift(a.rng, 2, S, s, split, gtid, gsize);
     }
     grid.sync();
+    if (stamps) stamp[4] = clock_ns();
     const int jobs = c[cJobs];
     for (int j = 0; j < jobs; ++j)
       write_slot<kForesight, kFat>(a, job_of(a, j), gtid, gsize);
     grid.sync();
+    if (stamps) stamp[5] = clock_ns();
     for (int j = 0; j < jobs; ++j)
       chunk_firsts(a, j, job_of(a, j), gtid, gsize);
     grid.sync();
@@ -679,21 +729,32 @@ rebalance_kernel(Args a) {
     for (int j = 0; j < jobs; ++j)
       link_chunks<kForesight>(a, j, job_of(a, j), gtid, gsize);
     grid.sync();
+    if (stamps) stamp[6] = clock_ns();
   }
 }
 
+// The grid: as many blocks as the card keeps resident (at most
+// kMaxBlocksPerSm a SM, kMaxGridBlocks in all), asked of the runtime once a
+// device and variant.
 template <bool kForesight, bool kFat>
 int launch(Args& a, cudaStream_t stream) {
-  int dev = 0, sms = 0, per_sm = 0;
+  static int grid_of[kMaxDevices];          // 0: not asked yet
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, rebalance_kernel<kForesight, kFat>, kThreads, 0);
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int blocks = sms * min(per_sm, kMaxBlocksPerSm);
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int blocks = grid_of[dev];
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, rebalance_kernel<kForesight, kFat>, kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    blocks = min(sms * min(per_sm, kMaxBlocksPerSm), kMaxGridBlocks);
+    grid_of[dev] = blocks;
+  }
   void* params[] = {&a};
   return (int)cudaLaunchCooperativeKernel(
       (const void*)rebalance_kernel<kForesight, kFat>, dim3(blocks),
@@ -711,14 +772,16 @@ extern "C" {
 // arrays are null on the scalar layout (`width` 1).  The guard's k_sorted,
 // pdist and pnew and the given pair may be null where the mode does not
 // read them.  run_keys / run_vals hold 2 * cap * width ints, chunk_first
-// 2 * levels * ceil((cap - 2) / 64), ctrl 26.
+// 2 * levels * ceil((cap - 2) / 64), front cap + 1, sums 1024 long longs,
+// ctrl 40 ints (8-byte aligned: the phase stamps are u64).
 int rebalance_launch(void* fused, void* nxt, void* keys, void* vals,
                      void* height, void* n, void* free_top, void* free_list,
                      void* bump, void* rng, void* fat_keys, void* fat_vals,
                      void* nlen, void* boundaries, const void* k_sorted,
                      const void* pdist, const void* pnew, const void* given,
                      const void* ref_ctz, void* run_keys, void* run_vals,
-                     void* chunk_first, void* ctrl, void* counts,
+                     void* chunk_first, void* front, void* sums, void* ctrl,
+                     void* counts,
                      int mode, int shards, int levels, long long cap,
                      int width, long long batch, long long usable,
                      int ceil_, float hi_mark, float lo_mark,
@@ -746,6 +809,8 @@ int rebalance_launch(void* fused, void* nxt, void* keys, void* vals,
   a.run_keys = (int*)run_keys;
   a.run_vals = (int*)run_vals;
   a.chunk_first = (int*)chunk_first;
+  a.front = (int*)front;
+  a.sums = (long long*)sums;
   a.ctrl = (int*)ctrl;
   a.counts = (int*)counts;
   a.mode = mode;

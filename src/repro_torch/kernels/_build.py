@@ -78,15 +78,15 @@ _SIGNATURES = {
     "apply_ops_launch": [_P] * 21 + [_I, _I, _LL, _I, _LL, _P],
     # fused, nxt, keys, vals, height, n, free_top, free_list, bump, rng,
     # fat_keys, fat_vals, nlen, boundaries, k_sorted, pdist, pnew, given,
-    # ref_ctz, run_keys, run_vals, chunk_first, ctrl, counts | mode,
-    # shards, levels, cap, width, batch, usable, ceil, hi_mark, lo_mark,
-    # seed, max_steps (the rebalance passes, rebalance.cu)
-    "rebalance_launch": [_P] * 24 + [_I, _I, _I, _LL, _I, _LL, _LL, _I, _F,
+    # ref_ctz, run_keys, run_vals, chunk_first, front, sums, ctrl, counts |
+    # mode, shards, levels, cap, width, batch, usable, ceil, hi_mark,
+    # lo_mark, seed, max_steps (the rebalance passes, rebalance.cu)
+    "rebalance_launch": [_P] * 26 + [_I, _I, _I, _LL, _I, _LL, _LL, _I, _F,
                                      _F, _LL, _LL, _P],
-    # fused, nxt, keys, vals, fat_keys, fat_vals, boundaries, lo, hi,
-    # out_keys, out_vals, out_count | scans, shards, levels, cap, width,
-    # max_out, raw, max_steps (the range scans, range_scan.cu)
-    "range_scan_launch": [_P] * 12 + [_LL, _I, _I, _LL, _I, _I, _I, _LL,
+    # fused, nxt, keys, vals, fat_keys, fat_vals, nlen, boundaries, lo, hi,
+    # out_keys, out_vals, out_count, front | scans, shards, levels, cap,
+    # width, max_out, raw, max_steps (the range scans, range_scan.cu)
+    "range_scan_launch": [_P] * 14 + [_LL, _I, _I, _LL, _I, _I, _I, _LL,
                                       _P],
 }
 

@@ -9,10 +9,12 @@ The device counterpart of the reference's scans (``repro.core.skiplist
 as a stack of one) and returns ``(keys [Q, max_out], vals [Q, max_out],
 count [Q])`` int32, padded with ``KEY_MAX`` / ``NULL_VAL``; ``raw=True`` is
 ``to_sorted_keys``' walk, ``max_out`` successor keys from the head.  On
-CUDA tensors it launches ``csrc/range_scan.cu`` (one warp a scan) and
-counts the launch in ``range_scan_batch.launches``, with nothing read back
-to the host; on CPU tensors it runs ``range_scan_batch_plain``, the host
-loops of ``core.skiplist`` and ``core.sharded``; any other device raises.
+CUDA tensors it launches ``csrc/range_scan.cu`` (one warp a scan; a scan
+of ``GATHER_FROM`` pairs or more, or over fat runs, gathered top-down by
+the warp) and counts the launch in ``range_scan_batch.launches``, with
+nothing read back to the host; on CPU tensors it runs
+``range_scan_batch_plain``, the host loops of ``core.skiplist`` and
+``core.sharded``; any other device raises.
 A failed build or launch raises: there is no fallback.
 """
 from __future__ import annotations
@@ -27,6 +29,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.foresight_traverse import traversal_bound
 
 Scan = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+MAX_LEVELS = 32          # kMaxLevels: the positioning walk's floors
+GATHER_FROM = 64         # kGatherFrom: a scalar scan of fewer pairs is
+                         # walked by one lane, a longer one gathered
 
 
 def bound_lanes(v, device) -> torch.Tensor:
@@ -103,6 +108,9 @@ def _launch(stack: sl.SkipListState, boundaries, lo: torch.Tensor,
                          "boundaries")
     if max_out < 1:
         raise ValueError(f"range_scan_batch: max_out {max_out} must be >= 1")
+    if L > MAX_LEVELS:
+        raise ValueError(f"range_scan_batch: the kernel takes at most "
+                         f"{MAX_LEVELS} levels; got {L}")
     Q = lo.shape[0]
     i32 = dict(dtype=torch.int32, device=dev)
     out_k = torch.empty((Q, max_out), **i32)
@@ -110,12 +118,17 @@ def _launch(stack: sl.SkipListState, boundaries, lo: torch.Tensor,
     count = torch.empty((Q,), **i32)
     if Q == 0:
         return out_k, out_v, count
+    # the gathers' frontiers: only a scan of GATHER_FROM pairs or more, or
+    # over fat runs, gathers (a batch of short scans keeps its footprint)
+    gathers = max_out >= GATHER_FROM or (stack.fat_keys is not None
+                                         and not raw)
+    front = torch.empty((Q, max_out + 2) if gathers else (1,), **i32)
     ptr = lambda t: None if t is None else t.data_ptr()
     _build.launch(
         "range_scan_launch",
         *map(ptr, (stack.fused, stack.nxt, stack.keys, stack.vals,
-                   stack.fat_keys, stack.fat_vals, boundaries, lo, hi,
-                   out_k, out_v, count)),
+                   stack.fat_keys, stack.fat_vals, stack.nlen, boundaries,
+                   lo, hi, out_k, out_v, count, front)),
         Q, S, L, cap, stack.node_width, max_out,
         int(raw),  # trace-ok: a Python bool
         traversal_bound(L, cap), stream)

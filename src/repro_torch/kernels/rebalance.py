@@ -39,7 +39,10 @@ from repro_torch.kernels.foresight_traverse import traversal_bound
 MODES = {"watermark": 0, "guard": 1, "split": 2, "merge": 3}
 MAX_LEVELS = 32          # kMaxLevels: a chunk's per-level cursor
 CHUNK = 64               # kChunk: the positions a thread links
-CTRL = 26                # kCtrlSize: the control record's ints
+CTRL = 40                # kCtrlSize: the control record's ints
+STAMPS = 26              # cStamps: the first trip's phase stamps from here
+PHASES = ("decide", "flatten", "cut", "shift", "write", "link")
+GRID_BLOCKS = 1024       # kMaxGridBlocks: the grid scan's partial sums
 
 _SCRATCH: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
 _REF_CTZ: Dict[torch.device, torch.Tensor] = {}
@@ -154,9 +157,24 @@ def rebalance_pass_plain(shl, mode: str, *, high_water: float = 0.75,
                         device=shl.boundaries.device)
 
 
+def last_phases(shl) -> Dict[str, float]:
+    """The first trip of the last pass launched on ``shl``'s shape, phase
+    by phase (``PHASES``, ms of the card's clock), from the stamps the
+    kernel leaves in its control record: int64 ns, the trip's start, then
+    the end of each phase it reached (zeros past the last).  Reads the
+    card, so it synchronises: a measurement's call, not the passes'."""
+    st = shl.shards
+    L = (st.fused if st.foresight else st.nxt).shape[1]
+    ctrl = _scratch(shl.boundaries.device, st.keys.shape[1], L,
+                    st.node_width)[5]
+    t = ctrl[STAMPS:].cpu().view(torch.int64).tolist()
+    return {name: (t[i + 1] - t[i]) / 1e6 for i, name in enumerate(PHASES)}
+
+
 def _scratch(dev: torch.device, cap: int, levels: int, width: int):
-    """(run_keys, run_vals, chunk_first, ctrl, ref_ctz) of a state shape on
-    ``dev``, made once."""
+    """(run_keys, run_vals, chunk_first, front, sums, ctrl, ref_ctz) of a
+    state shape on ``dev``, made once; ``ctrl[STAMPS:]`` holds the stamps
+    ``last_phases`` reads."""
     key = (dev, cap, levels, width)
     if key not in _SCRATCH:
         i32 = dict(dtype=torch.int32, device=dev)
@@ -164,6 +182,9 @@ def _scratch(dev: torch.device, cap: int, levels: int, width: int):
         _SCRATCH[key] = (torch.empty(2 * cap * width, **i32),
                          torch.empty(2 * cap * width, **i32),
                          torch.empty(2 * levels * max(1, chunks), **i32),
+                         torch.empty(cap + 1, **i32),
+                         torch.empty(GRID_BLOCKS, dtype=torch.int64,
+                                     device=dev),
                          torch.zeros(CTRL, **i32))
     if dev not in _REF_CTZ:
         _REF_CTZ[dev] = torch.tensor(sl._REF_CTZ, dtype=torch.int32,
@@ -207,10 +228,11 @@ def _launch(shl, mode: str, guard, given, *, high_water: float,
     L = (st.fused if st.foresight else st.nxt).shape[1]
     width = st.node_width
     _check(shl, (guard or ()) + (() if given is None else (given,)))
-    run_k, run_v, chunk_first, ctrl, ref_ctz = _scratch(dev, cap, L, width)
+    run_k, run_v, chunk_first, front, sums, ctrl, ref_ctz = _scratch(
+        dev, cap, L, width)
     usable = sl.usable_capacity(cap, width)
     hi, lo = marks(usable, high_water, low_water)
-    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)  # zeroed by it
     k_sorted, pdist, pnew = guard or (None, None, None)
     ptr = lambda t: None if t is None else t.data_ptr()
     _build.launch(
@@ -218,8 +240,8 @@ def _launch(shl, mode: str, guard, given, *, high_water: float,
         *map(ptr, (st.fused, st.nxt, st.keys, st.vals, st.height, st.n,
                    st.free_top, st.free_list, st.bump, st.rng, st.fat_keys,
                    st.fat_vals, st.nlen, shl.boundaries, k_sorted, pdist,
-                   pnew, given, ref_ctz, run_k, run_v, chunk_first, ctrl,
-                   counts)),
+                   pnew, given, ref_ctz, run_k, run_v, chunk_first, front,
+                   sums, ctrl, counts)),
         MODES[mode], S, L, cap, width,
         0 if k_sorted is None else k_sorted.shape[0], usable,
         ceiling(S, max_shards), hi, lo,

@@ -237,6 +237,21 @@ def test_launch_bounds_and_block_sizes_come_from_the_source():
         assert set(ks.block_dims) == {ks.max_threads}, ks
 
 
+def test_constants_of_included_headers_are_read(tmp_path):
+    """A launch bound or block size may name a constant of a csrc header
+    the source includes (``level_walk.cuh``'s ``kLanes``, say)."""
+    (tmp_path / "walk.cuh").write_text("constexpr int kLanesX = 32;\n")
+    (tmp_path / "k.cu").write_text(
+        '#include "walk.cuh"\nconstexpr int kPer = 4;\n'
+        "__global__ void __launch_bounds__(kLanesX * kPer, 1) k_kernel(int a)"
+        " {}\nvoid go() { k_kernel<<<1, kLanesX * kPer>>>(0); }\n")
+    src = kb.kernel_sources(tmp_path)
+    assert (src["k_kernel"].max_threads, src["k_kernel"].min_blocks,
+            src["k_kernel"].block_dims) == (128, 1, (128,))
+    assert "kLanes = 32" in kb.included_headers(
+        REPO / "src/repro_torch/csrc/range_scan.cu")
+
+
 def test_max_shards_under_smem_covers_the_documented_8192():
     usage = kb.load_record()[1]
     s = kb.max_shards_under_smem(usage)

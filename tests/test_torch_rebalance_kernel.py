@@ -26,6 +26,7 @@ import torch
 from repro.core import rebalance_traced as rbt
 from repro.core import sharded as shd
 from repro.core import skiplist as rsl
+from repro_torch.analysis.kernel_budget import constants
 from repro_torch.convert import sharded_from_numpy, sharded_to_numpy
 from repro_torch.core import rebalance_traced as trbt
 from repro_torch.core import sharded as tsh
@@ -233,7 +234,7 @@ def test_launch_passes_the_declared_arity_and_widths(monkeypatch, foresight,
     assert counts.shape == (2,) and counts.device.type == "meta"
     (name, args), = rec.calls
     sig = _build._SIGNATURES[name]
-    assert name == "rebalance_launch" and len(args) == len(sig) == 37
+    assert name == "rebalance_launch" and len(args) == len(sig) == 39
     for a, t in zip(args, sig):
         if t is ctypes.c_void_p:
             assert a is None or isinstance(a, int)
@@ -243,13 +244,47 @@ def test_launch_passes_the_declared_arity_and_widths(monkeypatch, foresight,
             assert isinstance(a, int) and t(a).value == a
     usable = tsl.usable_capacity(cap, width)
     hi, lo = trk.marks(usable, 0.8, 0.3)
-    assert list(args[24:36]) == [
+    assert list(args[26:38]) == [
         trk.MODES[mode], S, L, cap, width, 40 if guard else 0, usable, 4,
         hi, lo, 5, trk.traversal_bound(L, cap)]
     assert (args[0] is None) != foresight and (args[1] is None) == foresight
     assert (args[10:13] == (None, None, None)) == (width == 1)
     assert (args[14] is None) == (guard is None)
     assert (args[17] is None) == (given is None)
+    front, sums, ctrl = trk._scratch(stack.keys.device, cap, L, width)[3:6]
+    assert args[22] is not None and args[23] is not None
+    assert front.shape == (cap + 1,) and front.dtype == torch.int32
+    assert sums.shape == (trk.GRID_BLOCKS,) and sums.dtype == torch.int64
+    assert ctrl.shape == (trk.CTRL,) and trk.STAMPS % 2 == 0
+    assert trk.CTRL == trk.STAMPS + 2 * (len(trk.PHASES) + 1)
+
+
+def test_wrapper_mirrors_the_kernels_constants():
+    """The wrapper's scratch sizes and refusal use the kernel's own
+    ``kChunk``, ``kMaxGridBlocks`` and ``kMaxLevels``."""
+    c = constants((_build.SOURCE_DIR / "rebalance.cu").read_text())
+    assert (c["kChunk"], c["kMaxGridBlocks"], c["kMaxLevels"]) == (
+        trk.CHUNK, trk.GRID_BLOCKS, trk.MAX_LEVELS)
+
+
+def test_last_phases_reads_the_stamps_of_the_states_shape():
+    """``last_phases`` turns the control record's int64 ns stamps (the
+    first trip's start, then each phase's end) into ms a phase, from the
+    scratch of the state's own shape."""
+    keys, arrays = _start(1, True, 16)
+    shl = sharded_from_numpy(arrays, device="cpu")
+    st = shl.shards
+    ctrl = trk._scratch(torch.device("cpu"), st.keys.shape[1],
+                        st.fused.shape[1], st.node_width)[5]
+    ns = torch.tensor([10**9 + 7 * 10**6 * i * i
+                       for i in range(len(trk.PHASES) + 1)])
+    ctrl[trk.STAMPS:] = ns.view(torch.int32)
+    got = trk.last_phases(shl)
+    assert list(got) == list(trk.PHASES)
+    assert list(got.values()) == [7.0 * (2 * i + 1)
+                                  for i in range(len(trk.PHASES))]
+    ctrl.zero_()
+    assert set(trk.last_phases(shl).values()) == {0.0}
 
 
 def test_wrapper_refuses_other_devices_and_deep_stacks():

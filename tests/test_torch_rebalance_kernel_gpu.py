@@ -6,12 +6,21 @@ cooperative launch of K12 (``kernels.rebalance.rebalance_pass``), the CPU
 through the host loops of ``core.rebalance_traced``.  Every state array
 (``rng`` and the boundaries included), every result and every split and
 merge count must agree.  Node widths 1, 8 and 128, foresight and base.
+The flatten gathers each shard top-down over its towers: a split and a
+merge are also held on shards whose towers are all of height 1 or all but
+one node's, on shards at their full fill, and on a merge whose second
+shard is empty; a level-0 cycle must fail the launch.
 Needs a CUDA card, nvcc and no JAX; every test here is marked ``gpu`` and
 skips without a card.  Run on a card machine with
 
     PYTHONPATH=src python -m pytest -q --noconftest \\
         tests/test_torch_rebalance_kernel_gpu.py
 """
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
@@ -202,3 +211,141 @@ def test_guard_median_at_the_minimum_and_indivisible_mass_like_the_cpu(
         got[dev] = (y, int(splits))
     _same(got["cuda"][0], got["cpu"][0])
     assert got["cuda"][1] == got["cpu"][1] == 0
+
+
+def _to(shl, dev):
+    return tsh.ShardedSkipList(
+        tsl.SkipListState(*(None if t is None else t.to(dev)
+                            for t in shl.shards)), shl.boundaries.to(dev))
+
+
+def _cut_towers(st, tall=None):
+    """Every tower of ``st`` (a shard's views) cut to level 0 but node
+    ``tall``'s, raised to every level: above level 0 the head points at
+    ``tall`` (or the tail) and ``tall`` at the tail."""
+    live = (torch.arange(st.capacity) >= 2) & (st.height > 0)
+    st.height[live] = 1
+    top = tsl.TAIL if tall is None else tall
+    if tall is not None:
+        st.height[tall] = st.levels
+    for lvl in range(1, st.levels):
+        if st.foresight:
+            st.fused[lvl, tsl.HEAD] = torch.tensor(
+                [top, int(st.keys[top])], dtype=torch.int32)
+            if tall is not None:
+                st.fused[lvl, tall] = torch.tensor([tsl.TAIL, 2**31 - 1],
+                                                   dtype=torch.int32)
+        else:
+            st.nxt[lvl, tsl.HEAD] = top
+            if tall is not None:
+                st.nxt[lvl, tall] = tsl.TAIL
+
+
+def _split_then_merge(shl, s, at):
+    """A given split of shard s at ``at``, then the merge of its halves,
+    on both devices from the same CPU state: every array equal."""
+    st = {"cpu": shl, "cuda": _to(shl, "cuda")}
+    got = {}
+    for dev in DEVICES:
+        x = rbt.split_shard_traced(
+            st[dev], s, torch.tensor(at, dtype=torch.int32, device=dev),
+            seed=5)
+        y = rbt.merge_shards_traced(x, torch.tensor(s, device=dev), seed=3)
+        got[dev] = (x, y)
+    _same(got["cuda"][0], got["cpu"][0])
+    _same(got["cuda"][1], got["cpu"][1])
+
+
+@pytest.mark.parametrize("shape", ["flat", "one_tall"])
+@pytest.mark.parametrize("foresight", [True, False])
+@pytest.mark.parametrize("width", WIDTHS)
+def test_split_and_merge_over_cut_towers_like_the_cpu(cuda, width,
+                                                      foresight, shape):
+    """Shard 1 of 4 (64 node slots, 10 levels) with every tower of height
+    1, or every tower but its middle node's: the flatten gathers it from
+    one segment, or two, and the split and merge equal the plain version."""
+    fill = tsl.pack_fill(width)
+    keys = np.sort(np.random.default_rng(3).choice(
+        SPAN, 4 * 50 * fill, replace=False)).astype(np.int32)
+    shl = rbt.pad_shards(tsh.build_sharded(
+        keys, keys * 3, n_shards=4, capacity=64, levels=10,
+        foresight=foresight, seed=2, node_width=width, device="cpu"), 8)
+    nodes = int(shl.shards.bump[1]) - 2
+    _cut_towers(tsh.shard_view(shl.shards, 1),
+                None if shape == "flat" else 2 + nodes // 2)
+    part = keys[50 * fill:100 * fill]
+    _split_then_merge(shl, 1, int(part[part.size // 2]) + 1)
+
+
+@pytest.mark.parametrize("foresight", [True, False])
+@pytest.mark.parametrize("width", WIDTHS)
+def test_split_and_merge_at_full_fill_like_the_cpu(cuda, width, foresight):
+    """Four shards of 64 node slots built at their full fill (every node
+    slot used), padded to 8: shard 2 split at its median and merged back."""
+    fill = tsl.pack_fill(width)
+    usable = tsl.usable_capacity(64, width)
+    keys = np.sort(np.random.default_rng(4).choice(
+        SPAN, 4 * usable, replace=False)).astype(np.int32)
+    shl = rbt.pad_shards(tsh.build_sharded(
+        keys, keys * 3, n_shards=4, capacity=64, levels=10,
+        foresight=foresight, seed=2, node_width=width, device="cpu"), 8)
+    assert int(shl.shards.n[2]) == usable and \
+        int(shl.shards.bump[2]) == 64, "the shard is not at full fill"
+    part = keys[2 * usable:3 * usable]
+    _split_then_merge(shl, 2, int(part[usable // 2]))
+
+
+@pytest.mark.parametrize("foresight", [True, False])
+@pytest.mark.parametrize("width", WIDTHS)
+def test_merge_into_an_empty_shard_like_the_cpu(cuda, width, foresight):
+    """Every key of shard 2 deleted, then shards 1 and 2 merged: the
+    second flatten gathers nothing."""
+    keys, st = _start(width, foresight)
+    cpu = st["cpu"]
+    b = cpu.boundaries.numpy()
+    gone = keys[(keys >= b[2]) & (keys < b[3])]
+    ops = np.full(gone.size, tsl.OP_DELETE, np.int32)
+    cpu, _ = tsh.apply_ops_sharded(cpu, ops, gone, gone)
+    assert int(cpu.shards.n[2]) == 0
+    st = {"cpu": cpu, "cuda": _to(cpu, "cuda")}
+    got = {dev: rbt.merge_shards_traced(st[dev], torch.tensor(1, device=dev),
+                                        seed=4) for dev in DEVICES}
+    _same(got["cuda"], got["cpu"])
+
+
+_CYCLE = """
+import numpy as np
+import torch
+from repro_torch.core import rebalance_traced as rbt
+from repro_torch.core import sharded as tsh
+keys = np.arange(10, 4010, 10, dtype=np.int32)
+shl = rbt.pad_shards(tsh.build_sharded(
+    keys, keys, n_shards=2, capacity=512, levels=8, foresight={foresight},
+    seed=1, device="cuda"), 4)
+# shard 0's level 0 only: node 150 points back at node 20, so the walk of
+# the segment that holds it loops
+st = tsh.shard_view(shl.shards, 0)
+if st.foresight:
+    st.fused[0, 150] = torch.tensor([20, int(st.keys[20])], dtype=torch.int32)
+else:
+    st.nxt[0, 150] = 20
+rbt.split_shard_traced(shl, 0, torch.tensor(1000, dtype=torch.int32,
+                                            device="cuda"), seed=1)
+torch.cuda.synchronize()
+print("NO TRAP")
+"""
+
+
+@pytest.mark.parametrize("foresight", [True, False])
+def test_a_level0_cycle_fails_the_flatten_and_does_not_hang(cuda,
+                                                           foresight):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(_CYCLE.format(
+            foresight=foresight))],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode != 0 and "NO TRAP" not in proc.stdout, \
+        proc.stdout + proc.stderr
+    assert "CUDA" in proc.stderr or "cuda" in proc.stderr, proc.stderr

@@ -19,6 +19,7 @@ import torch
 from repro.core import rebalance_traced as rbt
 from repro.core import sharded as shd
 from repro.core import skiplist as sl
+from repro_torch.analysis.kernel_budget import constants
 from repro_torch.convert import sharded_from_numpy, state_from_numpy
 from repro_torch.core import sharded as tsh
 from repro_torch.core import skiplist as tsl
@@ -165,17 +166,18 @@ def test_launch_passes_the_declared_arity_and_widths(monkeypatch, foresight,
     assert k.shape == v.shape == (Q, m) and c.shape == (Q,)
     (name, args), = rec.calls
     sig = _build._SIGNATURES[name]
-    assert name == "range_scan_launch" and len(args) == len(sig) == 21
+    assert name == "range_scan_launch" and len(args) == len(sig) == 23
     for a, t in zip(args, sig):
         if t is ctypes.c_void_p:
             assert a is None or isinstance(a, int)
         else:
             assert isinstance(a, int) and t(a).value == a
-    assert list(args[12:20]) == [Q, S, L, cap, width, m, 0,
+    assert list(args[14:22]) == [Q, S, L, cap, width, m, 0,
                                  trs.traversal_bound(L, cap)]
     assert (args[0] is None) != foresight and (args[1] is None) == foresight
-    assert (args[4:6] == (None, None)) == (width == 1)
-    assert (args[6] is None) != sharded
+    assert (args[4:7] == (None, None, None)) == (width == 1)
+    assert (args[7] is None) != sharded
+    assert args[13] is not None              # the frontiers' scratch
 
 
 def test_wrapper_refuses_other_devices_and_bad_arguments():
@@ -188,6 +190,17 @@ def test_wrapper_refuses_other_devices_and_bad_arguments():
         trs._launch(stack, None, q, q, 4, False, 0)
     with pytest.raises(ValueError, match="max_out"):
         trs._launch(stack, torch.empty(2, **meta), q, q, 0, False, 0)
+    deep = tsl.allocate((2,), 16, 33, foresight=True, device="meta")
+    with pytest.raises(ValueError, match="at most 32 levels"):
+        trs._launch(deep, torch.empty(2, **meta), q, q, 4, False, 0)
+
+
+def test_wrapper_mirrors_the_kernels_constants():
+    """``GATHER_FROM`` (from which the wrapper allocates the gathers'
+    frontiers) and ``MAX_LEVELS`` (its refusal) are the kernel's own."""
+    c = constants((_build.SOURCE_DIR / "range_scan.cu").read_text())
+    assert (c["kGatherFrom"], c["kMaxLevels"]) == (trs.GATHER_FROM,
+                                                   trs.MAX_LEVELS)
 
 
 def test_scan_bounds_wrap_to_int32_like_the_reference():

@@ -7,13 +7,23 @@ and ``range_scan_sharded`` run one launch of K13 on the card
 Keys, vals and counts must agree on the cases the scans must meet:
 ``max_out`` hit, ``lo`` past every key, ``hi`` at ``KEY_MAX``, a spill
 across shards, across emptied shards and into the dead slots, and a fat
-run straddling ``lo``.  Node widths 1, 8 and 128, foresight and base.
+run straddling ``lo``; and, for the warp's top-down gather (a scalar scan
+of ``rs.GATHER_FROM`` pairs or more, every fat scan), ``max_out`` of 1,
+32, 33, either side of ``GATHER_FROM`` and the whole list,
+``max_out`` cutting inside a segment and inside a fat run, lists whose
+towers are all of height 1 or all but one node's, and a level-0 cycle,
+which must fail the launch.  Node widths 1, 8 and 128, foresight and base.
 Needs a CUDA card, nvcc and no JAX; every test here is marked ``gpu`` and
 skips without a card.  Run on a card machine with
 
     PYTHONPATH=src python -m pytest -q --noconftest \\
         tests/test_torch_scan_kernel_gpu.py
 """
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +36,7 @@ from repro_torch.kernels import range_scan as rs
 pytestmark = pytest.mark.gpu
 DEVICES = ("cuda", "cpu")
 KEY_MAX = 2**31 - 1
+KEY_MIN = -2**31
 SPAN = 1 << 16
 
 
@@ -134,3 +145,127 @@ def test_a_batch_of_scans_is_one_launch(cuda):
     want = rs.range_scan_batch(stacks["cpu"], None, lo, hi, 64)
     assert rs.range_scan_batch.launches == before + 1
     _same_scan(got, want)
+
+
+def _to(st, dev):
+    return tsl.SkipListState(*(None if t is None else t.to(dev) for t in st))
+
+
+def _cut_towers(st, tall=None):
+    """Every tower of ``st`` (views: writes reach a stack) cut to level 0
+    but node ``tall``'s, raised to every level: above level 0 the head
+    points at ``tall`` (or the tail) and ``tall`` at the tail."""
+    live = (torch.arange(st.capacity) >= 2) & (st.height > 0)
+    st.height[live] = 1
+    top = tsl.TAIL if tall is None else tall
+    if tall is not None:
+        st.height[tall] = st.levels
+    for lvl in range(1, st.levels):
+        if st.foresight:
+            st.fused[lvl, tsl.HEAD] = torch.tensor(
+                [top, int(st.keys[top])], dtype=torch.int32)
+            if tall is not None:
+                st.fused[lvl, tall] = torch.tensor([tsl.TAIL, KEY_MAX],
+                                                   dtype=torch.int32)
+        else:
+            st.nxt[lvl, tsl.HEAD] = top
+            if tall is not None:
+                st.nxt[lvl, tall] = tsl.TAIL
+
+
+def _long_cases(keys, width):
+    """(lo, hi, max_out) for the top-down gather: max_out of 1, 32, 33,
+    either side of GATHER_FROM (lane 0's walk, then the warp's gather), 64
+    and the whole list from the first key; max_out cutting inside a
+    segment (77, 129) and, at width 8 and 128, inside a run (an odd count
+    past a run's start); a range cut by hi inside the list; everything
+    from KEY_MIN; one key."""
+    k = keys
+    fill = tsl.pack_fill(width)
+    return ([(int(k[0]), KEY_MAX, m)
+             for m in sorted({1, 32, 33, rs.GATHER_FROM - 1, rs.GATHER_FROM,
+                              64, 77, 129, k.size, k.size + 9})]
+            + [(int(k[7]) + 1, int(k[-20]), 101),
+               (int(k[3 * fill + 1]), KEY_MAX, 5 * fill + 3),
+               (KEY_MIN, KEY_MAX, 2 * k.size),
+               (int(k[100]), int(k[100]) + 1, 40)])
+
+
+@pytest.mark.parametrize("shape", ["built", "flat", "one_tall"])
+@pytest.mark.parametrize("foresight", [True, False])
+@pytest.mark.parametrize("width", [1, 8, 128])
+def test_long_scans_over_any_towers_equal_the_cpu(cuda, width, foresight,
+                                                  shape):
+    """600 keys on 10 levels, their towers as built, all of height 1, or
+    all of height 1 but one node's at every level: every long scan and
+    ``to_sorted_keys`` equal the plain version."""
+    keys = _keys(600, seed=4)
+    fill = tsl.pack_fill(width)
+    nodes = -(-keys.size // fill)
+    cpu = tsl.build(keys, keys * 7 + 2, capacity=2 * nodes + 8, levels=10,
+                    foresight=foresight, seed=5, node_width=width,
+                    device="cpu")
+    if shape != "built":
+        _cut_towers(cpu, None if shape == "flat" else 2 + nodes // 2)
+    st = {"cpu": cpu, "cuda": _to(cpu, "cuda")}
+    for lo, hi, m in _long_cases(keys, width):
+        _same_scan(tsl.range_scan(st["cuda"], lo, hi, m),
+                   tsl.range_scan(st["cpu"], lo, hi, m))
+    for m in (1, 32, 33, rs.GATHER_FROM - 1, rs.GATHER_FROM, 100,
+              nodes + 5):
+        _same_scan([tsl.to_sorted_keys(st["cuda"], m)],
+                   [tsl.to_sorted_keys(st["cpu"], m)])
+
+
+@pytest.mark.parametrize("foresight", [True, False])
+@pytest.mark.parametrize("width", [1, 8, 128])
+def test_long_sharded_scans_spill_like_the_cpu(cuda, width, foresight):
+    """The top-down gather shard by shard: across the two emptied shards,
+    into the dead slots, max_out of 1, 32, 33, either side of GATHER_FROM
+    and every key."""
+    keys, b, st = _sharded(width, foresight)
+    cases = [(int(b[1]) + 1, KEY_MAX, m) for m in sorted(
+        {1, 32, 33, rs.GATHER_FROM - 1, rs.GATHER_FROM, 65, 150})]
+    cases += [(KEY_MIN, KEY_MAX, keys.size), (KEY_MIN, KEY_MAX, 2 * keys.size),
+              (int(b[5]) - 1, KEY_MAX, 97), (int(b[1]), int(b[5]), 70)]
+    for lo, hi, m in cases:
+        got = tsh.range_scan_sharded(st["cuda"], lo, hi, m)
+        want = tsh.range_scan_sharded(st["cpu"], lo, hi, m)
+        _same_scan(got, want)
+        sel = keys[(keys >= lo) & (keys < hi)][:m]
+        assert int(want[2]) == sel.size
+
+
+_CYCLE = """
+import torch
+from repro_torch.core import skiplist as tsl
+keys = list(range(10, 6000, 10))
+st = tsl.build(keys, list(range(len(keys))), capacity=1024, levels=8,
+               foresight={foresight}, seed=1, device="cuda")
+# level 0 only: node 302 points back at node 102, so the walk of the
+# segment that holds it loops
+y, back = 302, 102
+if st.foresight:
+    st.fused[0, y] = torch.tensor([back, int(st.keys[back])],
+                                  dtype=torch.int32)
+else:
+    st.nxt[0, y] = back
+tsl.range_scan(st, 0, 2**31 - 1, 500)
+torch.cuda.synchronize()
+print("NO TRAP")
+"""
+
+
+@pytest.mark.parametrize("foresight", [True, False])
+def test_a_level0_cycle_fails_a_long_scan_and_does_not_hang(cuda,
+                                                            foresight):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(_CYCLE.format(
+            foresight=foresight))],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode != 0 and "NO TRAP" not in proc.stdout, \
+        proc.stdout + proc.stderr
+    assert "CUDA" in proc.stderr or "cuda" in proc.stderr, proc.stderr
