@@ -55,6 +55,17 @@ Phases, one JSON line each:
    largest ``max_out`` (the warp's gather) and just below
    ``range_scan.GATHER_FROM`` (lane 0's walk); keys, vals and counts
    equal, the sharded scans equal numpy;
+4e. ``search_walk_check``: the recording search walk (K14,
+   ``csrc/search_walk.cu``, ``kernels.search_walk``) under ``search`` and
+   ``search_validated``, and ``search_fast`` (K1/K2 on the card), against
+   their plain versions on the card and the CPU's runs, every field
+   (found, vals, node, preds, steps, gathers) equal: 4000-key lists at
+   node widths 1, 8 and 128, both
+   variants, ``stop_level`` 0 and 2; the lists after 600 mixed ops through
+   the update kernel (widths 1 and 8); an empty batch (no launch);
+   ``KEY_MAX`` (found, -1); ``search_validated`` on 40% corrupt foreseen
+   keys and on a lag-1 view; a corrupt table of each variant, in a
+   subprocess, which must end in the kernel's trap;
 5. the paper's configuration, once per variant: 2^25 keys drawn from
    [0, 2^26) (Synchrobench: key range twice the size), vals = keys + 1,
    27 levels, capacity 2^26, built on the card with
@@ -68,14 +79,22 @@ Phases, one JSON line each:
    alone (``group_ms``, beside ``torch.sort``), the walk is also timed on
    the lanes in batch order (``ungrouped_ms``, checked equal) and on lanes
    grouped beforehand (``grouped_walk_ms``), and five calls are profiled
-   (the pass's device time against the walk's);
+   (the pass's device time against the walk's).  Then the eager reads'
+   main path, each call's launches read around it: ``search`` on both
+   traffics (one K14 launch each) and ``search_fast`` (one K1/K2 launch,
+   no K14), held against the oracle and their plain versions on the card
+   (every field; ``steps`` and ``gathers`` also against the replay's path
+   lengths), no synchronising call, times, the plain versions' and
+   ``torch.searchsorted``'s (for ``search_fast``), ``search``'s bound;
 6. updates and versioned reads at the same size: the foresight build in a
    ``VersionedIndex``, ``update`` with 65536 ops of fig3's upd=50% mix
    through the update kernel (each result held against a host oracle,
    then the foresight invariant; its synchronising calls counted: none),
    on both traffics 2^20 lag-1 reads through K8 (``search(lag=1,
-   use_kernel=True)``) and lag-0 reads through ``search`` and K1, held
-   against the oracle, the plain K8 and ``search_validated``; K8's times
+   use_kernel=True)``), lag-0 reads through ``search`` (K14) and K1 and
+   ``search_validated`` on the lag-1 view (K14), held against the oracle,
+   the plain K8 and ``search_validated`` (itself against its plain
+   version, timed and bounded as in 5); K8's times
    (grouped, in batch order, the pass alone, a profile), bound, path
    lengths and the queries its ``4L+16`` step cap cuts; then
    ``update_full_size``: the same batch through the update kernel alone on
@@ -115,7 +134,11 @@ Phases, one JSON line each:
    update entry points' (``VersionedIndex.update``, ``PageTable._apply``,
    ``apply_ops_mesh``) at 8 and at 64 ops, and for the last two also on a
    state the batch overfills so that the guard splits: none in any (the
-   in-place passes run on the card through the rebalance kernel);
+   in-place passes run on the card through the rebalance kernel); the
+   eager reads' (``search``, ``search_fast``, ``search_validated``,
+   ``VersionedIndex.search(lag=0)``, a monolithic store's ``lookup``: none
+   allowed) and one ``ServeEngine.submit``'s and watchdog check's
+   (reported; they read their answers back);
    fails on any finding outside ``repro_torch/analysis/baseline.json``
    and on ``BUDGET-STALE``.  The full-size phases 5 and 8 each make one more
    call of ``search_kernel`` / ``search_kernel_sharded`` under
@@ -305,7 +328,10 @@ Phases, one JSON line each:
    monolithic store and training main paths) and ``apply_ops``, the
    update kernel (its launches on every update main path; its times those
    of the monolithic 64-op batch that the plain version also ran, the
-   65536-op batch's beside them).
+   65536-op batch's beside them); ``search_walk`` (K14: the foresight
+   ``search`` on traffic A, with its launches on every K14 main path,
+   each read around its own call) and its rows for the base variant,
+   ``search_validated`` and the fat lists (B = 128 both variants, B = 8).
 
 Then the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check, build or launch raises, and the script exits non-zero.
@@ -349,7 +375,8 @@ from repro_torch.core import mesh_index as mi  # noqa: E402
 from repro_torch.core import rebalance_traced as rbt  # noqa: E402
 from repro_torch.core import sharded as shd  # noqa: E402
 from repro_torch.core import skiplist as sl  # noqa: E402
-from repro_torch.core.validated import search_validated  # noqa: E402
+from repro_torch.core.validated import (search_validated,  # noqa: E402
+                                        search_validated_plain)
 from repro_torch.core.versioned import VersionedIndex  # noqa: E402
 from repro_torch.data.pipeline import (DataPipeline,  # noqa: E402
                                        PipelineConfig)
@@ -360,6 +387,7 @@ from repro_torch.kernels import foresight_traverse as ft  # noqa: E402
 from repro_torch.kernels import mesh_launch as ml  # noqa: E402
 from repro_torch.kernels import range_scan as rs  # noqa: E402
 from repro_torch.kernels import rebalance as rk  # noqa: E402
+from repro_torch.kernels import search_walk as sw  # noqa: E402
 from repro_torch.kernels import shard_group as sg  # noqa: E402
 from repro_torch.kernels import validated_traverse as vt  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
@@ -412,6 +440,8 @@ FAT_WIDTHS = (128, 8)
 TRAVERSE_CU = "src/repro_torch/csrc/traverse.cu"
 SHARD_GROUP_CU = "src/repro_torch/csrc/shard_group.cu"
 FT_PY = "src/repro/kernels/foresight_traverse.py"
+K14_SOURCE = "src/repro_torch/csrc/search_walk.cu"
+K14_PLAIN_REPS = 3          # the host loops: 20-60 ms a call at full size
 KERNELS = {   # name -> (wrapper, plain version, source, TPU kernel replaced)
     "foresight_traverse": (ft.foresight_traverse, ft.foresight_traverse_plain,
                            TRAVERSE_CU, f"{FT_PY}:303"),
@@ -456,6 +486,13 @@ KERNELS = {   # name -> (wrapper, plain version, source, TPU kernel replaced)
                    "none: src/repro/core/skiplist.py:1055 range_scan and "
                    "src/repro/core/sharded.py:324 range_scan_sharded, "
                    "lax.fori_loop (no Pallas kernel)"),
+    # the eager recording reads: search and search_validated, one launch
+    # a call
+    "search_walk": (sw.search_walk, sl.search_plain, K14_SOURCE,
+                    "none: src/repro/core/skiplist.py:435 search "
+                    "(_search_loop's lax.while_loop, :410) and "
+                    "src/repro/core/validated.py:37 search_validated, "
+                    "lax.while_loop (no Pallas kernel)"),
 }
 # the kernels the data and serving planes' main paths launch (the page
 # table, the store); every other kernel launches before them
@@ -486,6 +523,15 @@ def read_launches() -> dict:
     out["fat_resolve"] = ft.fat_resolve.launches
     out["search_kernel_mesh"] = ml.search_kernel_mesh.launches
     return out
+
+
+def counted(fn):
+    """``fn()`` and the launches that call made, by kernel: every counter
+    read just before and just after it."""
+    before = read_launches()
+    out = fn()
+    after = read_launches()
+    return out, {name: after[name] - before[name] for name in after}
 
 
 def table_args(st: sl.SkipListState):
@@ -802,6 +848,50 @@ def update_syncs() -> dict:
     return out
 
 
+# the eager reads that must make no synchronising call; the engine's
+# admission and the watchdog keep their own reads and are reported only
+EAGER_READS = ("search", "search_fast", "search_validated",
+               "VersionedIndex.search(lag=0)", "IndexedSampleStore.lookup")
+
+
+def eager_read_syncs() -> dict:
+    """Synchronising calls of one call of each eager read on the card,
+    after a warm-up call, by site: on a 4000-key list (``SMALL``), its
+    ``VersionedIndex``, a monolithic ``IndexedSampleStore`` (its lookup is
+    ``search_fast``), then one ``ServeEngine.submit`` and one watchdog
+    check of the llama3_8b smoke engine.  Each of ``EAGER_READS`` must make
+    none."""
+    dev = torch.device(DEVICE)
+    keys = small_keys()
+    st = sl.build(keys, keys + 1, capacity=SMALL["capacity"],
+                  levels=SMALL["levels"], seed=SEED, device=dev)
+    q = torch.from_numpy(read_queries(keys, 1 << 22, 4096, SEED)).to(dev)
+    vi = VersionedIndex(st)
+    store = IndexedSampleStore(StoreConfig(), device=dev)
+    check(not store.sharded, "the store's index is one list")
+    sq = torch.from_numpy(store.keys_np[:2048].astype(np.int32)).to(dev)
+    fns = {"search": lambda: sl.search(st, q),
+           "search_fast": lambda: sl.search_fast(st, q),
+           "search_validated": lambda: search_validated(st.fused, st.keys,
+                                                        st.vals, q),
+           "VersionedIndex.search(lag=0)": lambda: vi.search(q, lag=0),
+           "IndexedSampleStore.lookup": lambda: store.lookup(sq)}
+    cfg = cfgs.get_smoke(FULL_ARCH)
+    eng = launch_serve.make_engine(cfg, EngineConfig(batch_slots=4,
+                                                     max_len=64),
+                                   seed=SEED, device=dev)
+    reqs = iter(launch_serve.make_requests(cfg.vocab, 3, 12, 8, seed=SEED))
+    fns["ServeEngine.submit"] = lambda: eng.submit(next(reqs))
+    fns["InvariantWatchdog.check"] = lambda: eng.watchdog.check(eng)
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        out[name] = syncs_per_call(fn)
+    check(all(out[name]["syncs"] == 0 for name in EAGER_READS),
+          "the eager reads make no synchronising call")
+    return out
+
+
 def analysis_check(smi: str) -> None:
     """The budget pass on the live ptxas report and the sync pass over the
     13 entry points (on the initialised mesh group); no finding may fall
@@ -813,6 +903,7 @@ def analysis_check(smi: str) -> None:
     _, new, _ = apply_baseline(budget + sync_findings,
                                load_baseline(Path(ANALYSIS_BASELINE)))
     upd = update_syncs()
+    reads = eager_read_syncs()
     stale = [f.render() for f in budget if f.rule == "BUDGET-STALE"]
     emit({"phase": "analysis", "card": smi, "kernels": rows,
           # of the record, which the live report equals (else stale)
@@ -826,6 +917,10 @@ def analysis_check(smi: str) -> None:
                                     for name, row in upd.items()},
           "update_sync_sites": {name: row[64]["sites"]
                                 for name, row in upd.items()},
+          "eager_read_syncs_per_call": {name: r["syncs"]
+                                        for name, r in reads.items()},
+          "eager_read_sync_sites": {name: r["sites"]
+                                    for name, r in reads.items()},
           "findings": len(budget) + len(sync_findings),
           "new_findings": len(new), "new": [f.render() for f in new],
           "budget_stale": stale, "budget_s": t_budget,
@@ -1453,6 +1548,198 @@ def scan_kernel_check() -> None:
     emit(report)
 
 
+SEARCH_FIELDS = sl.SearchResult._fields
+
+
+def result_err(got, want, fields, what: str) -> int:
+    """Every field of two read results equal in dtype, shape and value
+    (checked); the largest absolute difference, 0."""
+    err = 0
+    for name, g, w in zip(fields, got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{what}: {name} dtype and shape")
+        if g.numel():
+            err = max(err, int((g.cpu().long() - w.cpu().long()).abs().max()))
+    check(err == 0, f"{what}: every field equal")
+    return err
+
+
+def k14_against_plain(st: dict, q_np: np.ndarray, what: str,
+                      stop: int = 0) -> int:
+    """``search`` (at ``stop``, one K14 launch) and ``search_fast`` (one
+    K1/K2 launch) on the card, against their plain versions on the same
+    card state and the CPU's run on the CPU state; the max abs error, 0."""
+    q = {dev: torch.from_numpy(q_np).to(dev) for dev in (DEVICE, "cpu")}
+    got, n_got = counted(lambda: sl.search(st[DEVICE], q[DEVICE],
+                                           stop_level=stop))
+    fast, n_fast = counted(lambda: sl.search_fast(st[DEVICE], q[DEVICE]))
+    walk = kernel_name(st[DEVICE])
+    check(n_got["search_walk"] == 1 and n_fast["search_walk"] == 0 and
+          n_fast[walk] == 1, f"search launched K14 once and search_fast "
+                             f"{walk} once ({what})")
+    err = max(
+        result_err(got, sl.search_plain(st[DEVICE], q[DEVICE],
+                                        stop_level=stop),
+                   SEARCH_FIELDS, f"K14 search = plain on the card ({what})"),
+        result_err(got, sl.search(st["cpu"], q["cpu"], stop_level=stop),
+                   SEARCH_FIELDS, f"K14 search = the CPU ({what})"),
+        result_err(fast, sl.search_fast_plain(st[DEVICE], q[DEVICE]),
+                   ("found", "vals"), f"search_fast = plain ({what})"),
+        result_err(fast, sl.search_fast(st["cpu"], q["cpu"]),
+                   ("found", "vals"), f"search_fast = the CPU ({what})"))
+    check(not bool(got.preds[:, :stop].any()),
+          f"preds below stop_level stay 0 ({what})")
+    return err
+
+
+def read_queries(keys: np.ndarray, span: int, n: int, seed: int
+                 ) -> np.ndarray:
+    """Half keys, half draws from the span, and the edges: ``KEY_MAX``, the
+    least key, one below it and ``KEY_MIN + 1``."""
+    rng = np.random.default_rng(seed)
+    edge = [sl.KEY_MAX, int(keys[0]), int(keys[0]) - 1, sl.KEY_MIN + 1]
+    return np.concatenate([rng.choice(keys, n // 2),
+                           rng.integers(0, span, n // 2), edge]
+                          ).astype(np.int32)
+
+
+# a level-0 cycle: node 302 (key 3010) points back at node 102 (key 1010)
+# with a key below every query, so the unvalidated walk for 3015 loops
+# (the reference's would loop for ever); K14 must trap
+K14_CYCLE = """
+import sys
+import torch
+sys.path.insert(0, {src!r})
+from repro_torch.core import skiplist as sl
+keys = list(range(10, 6000, 10))
+st = sl.build(keys, list(range(len(keys))), capacity=1024, levels=8,
+              foresight={foresight!r}, seed=1, device="cuda")
+if st.foresight:
+    st.fused[0, 302] = torch.tensor([102, 0], dtype=torch.int32)
+else:
+    st.nxt[0, 302] = 102
+    st.keys[102] = 0
+sl.search(st, torch.tensor([3015], dtype=torch.int32, device="cuda"))
+torch.cuda.synchronize()
+print("NO TRAP")
+"""
+
+
+def k14_cycle_traps() -> dict:
+    """Start ``K14_CYCLE`` for each variant, in subprocesses run side by
+    side; each must fail in the kernel's trap.  Returns the CUDA error
+    each one reported."""
+    procs = {variant(fs): subprocess.Popen(
+        [sys.executable, "-c", K14_CYCLE.format(
+            src=str(Path(__file__).resolve().parent / "src"),
+            foresight=fs)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for fs in (True, False)}
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        check(proc.returncode != 0 and "NO TRAP" not in stdout and
+              "CUDA error" in stderr,
+              f"a corrupt {name} table ends in K14's trap: {stdout[-300:]} "
+              f"{stderr[-600:]}")
+        out[name] = [ln for ln in stderr.splitlines()
+                     if "CUDA error" in ln][-1][-200:]
+    return out
+
+
+def search_walk_check() -> None:
+    """The recording search walk (K14, ``csrc/search_walk.cu``) and
+    ``search_fast`` (K1/K2) against their plain versions on the card and
+    the CPU's runs, bit for bit in every field (found, vals, node, preds,
+    steps, gathers): lists of 4000 keys at
+    node widths 1, 8 and 128, both variants, ``stop_level`` 0 and 2; the
+    same lists after 600 mixed ops through the update kernel (ids out of
+    key order, freed slots reused), widths 1 and 8; an empty batch (no
+    launch); ``KEY_MAX`` (found, -1); ``search_validated`` on 40% corrupt
+    foreseen keys and on a lag-1 view; a corrupt table of each variant, in
+    a subprocess, ending in the trap."""
+    t0 = time.perf_counter()
+    report = {"phase": "search_walk_check", "comparisons": 0,
+              "max_abs_err": 0}
+    keys = small_keys()
+    span = 1 << 22
+    launches0 = sw.search_walk.launches
+
+    def note(err: int) -> None:
+        report["comparisons"] += 1
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+
+    for width in (1, 8, 128):
+        cap = SMALL["capacity"] if width == 1 else fat_capacity(SMALL["n"],
+                                                                 width)
+        for foresight in (True, False):
+            what = f"{variant(foresight)} width {width}"
+            st = {dev: sl.build(keys, keys + 1, capacity=cap,
+                                levels=SMALL["levels"], foresight=foresight,
+                                seed=SEED, node_width=width, device=dev)
+                  for dev in (DEVICE, "cpu")}
+            q_np = read_queries(keys, span, 1024, SEED + width)
+            for stop in (0, 2):
+                note(k14_against_plain(st, q_np, f"{what}, stop {stop}",
+                                       stop))
+            res = sl.search(st[DEVICE], torch.full(
+                (33,), sl.KEY_MAX, dtype=torch.int32, device=DEVICE))
+            check(bool(res.found.all()) and
+                  bool((res.vals == sl.NULL_VAL).all()),
+                  f"KEY_MAX is found with -1 ({what})")
+            if width == 128:
+                continue
+            stream = mixed_ops(keys, 600, span, SEED + 7)
+            after = {dev: sl.apply_ops(st[dev], *on(dev, *stream))[0]
+                     for dev in st}
+            check_same_state(after[DEVICE], after["cpu"],
+                             f"K11's state equals the CPU's ({what})")
+            q_np = np.concatenate([read_queries(keys, span, 1024, SEED + 9),
+                                   stream[1]])      # deleted, inserted keys
+            for stop in (0, 2):
+                note(k14_against_plain(after, q_np, f"{what} after K11, "
+                                       f"stop {stop}", stop))
+    st = sl.build(keys, keys + 1, capacity=SMALL["capacity"],
+                  levels=SMALL["levels"], seed=SEED, device=DEVICE)
+    empty = torch.zeros(0, dtype=torch.int32, device=DEVICE)
+    before = sw.search_walk.launches
+    res = sl.search(st, empty)
+    check(res.preds.shape == (0, SMALL["levels"]) and int(res.steps) == 0
+          and int(res.gathers) == 0 and sl.search_fast(st, empty)[0].numel()
+          == 0 and search_validated(st.fused, st.keys, st.vals,
+                                    empty).found.numel() == 0 and
+          sw.search_walk.launches == before,
+          "an empty batch reads nothing and launches nothing")
+    rng = np.random.default_rng(SEED + 4)
+    fused = st.fused.cpu().numpy().copy()
+    fused[..., 1] = np.where(rng.random(fused.shape[:2]) < 0.4,
+                             rng.integers(-2**31 + 1, 2**31 - 1,
+                                          fused.shape[:2]), fused[..., 1])
+    vi = VersionedIndex(st)
+    vi.update(*on(DEVICE, *mixed_ops(keys, 2000, span, SEED + 3)))
+    view = vi.read_view(lag=1)
+    q_np = read_queries(keys, span, 4096, SEED + 5)
+    views = {"corrupt40": (on(DEVICE, fused)[0], st.keys, st.vals),
+             "lag1": (view.fused, view.auth_keys, view.vals)}
+    for label, args in views.items():
+        cpu_args = [t.cpu() for t in args]
+        q = torch.from_numpy(q_np).to(DEVICE)
+        before = sw.search_walk.launches
+        got = search_validated(*args, q)
+        check(sw.search_walk.launches == before + 1,
+              f"search_validated launched K14 ({label})")
+        note(max(result_err(got, search_validated_plain(*args, q),
+                            SEARCH_FIELDS, f"K14 validated = plain on the "
+                                           f"card ({label})"),
+                 result_err(got, search_validated(*cpu_args, q.cpu()),
+                            SEARCH_FIELDS, f"K14 validated = the CPU "
+                                           f"({label})")))
+    report["k14_launches"] = sw.search_walk.launches - launches0
+    report["trap"] = k14_cycle_traps()
+    report["seconds"] = time.perf_counter() - t0
+    emit(report)
+
+
 def synchrobench_ops(n: int, seed: int):
     """fig3_sequential's upd=50% mix: 25% insert, 25% delete, 50% read,
     keys uniform over [0, FULL_SPAN), inserted vals = key + 1."""
@@ -1695,8 +1982,11 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
     lag-1 reads through K8 and lag-0 reads through ``search`` and K1, each
     held against a host oracle.  K8 groups its lanes by key range: it is
     also timed on the lanes in batch order and the pass alone, and five
-    calls are profiled (``split_times``).  Returns ({traffic: K8's
-    kernels-line row}, the key pass's launches on the main path)."""
+    calls are profiled (``split_times``).  The main path also runs
+    ``search_validated`` on the lag-1 view (K14), held against its plain
+    version, timed and bounded (``k14_row``).  Returns ({traffic: K8's
+    kernels-line row}, the key pass's launches on the main path, the
+    update kernel's row, {traffic: K14's validated row})."""
     stage_s, t_stage = {}, time.perf_counter()
     t_phase = t_stage
 
@@ -1730,14 +2020,27 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
     results = vi.update(*update_args)
     torch.cuda.synchronize()
     update_s = time.perf_counter() - t0
-    reads = {name: (vi.search(q, lag=1, use_kernel=True), vi.search(q, lag=0),
-                    ops.search_kernel(vi.current, q))
-             for name, q in qs.items()}
+    view = vi.read_view(lag=1)
+    reads, k14_calls = {}, {}
+    for name, q in qs.items():
+        lag0, n_lag0 = counted(lambda: vi.search(q, lag=0))
+        val, n_val = counted(lambda: search_validated(
+            view.fused, view.auth_keys, view.vals, q))
+        check(n_lag0["search_walk"] == 1 and n_val["search_walk"] == 1,
+              f"the lag-0 read and search_validated launched K14 once "
+              f"each ({name})")
+        k14_calls[name] = {"lag0": n_lag0["search_walk"],
+                           "validated": n_val["search_walk"]}
+        reads[name] = (vi.search(q, lag=1, use_kernel=True), lag0,
+                       ops.search_kernel(vi.current, q), val)
     torch.cuda.synchronize()
     launches = read_launches()
     lap("main_path")
     for name in ("validated_traverse", "foresight_traverse"):
         check(launches[name] >= 1, f"versioned path launched {name}")
+    check(launches["search_walk"] == sum(n for c in k14_calls.values()
+                                         for n in c.values()),
+          "the versioned K14 launches add up to the counter's total")
     check(launches["apply_ops"] == 1, "VersionedIndex.update launched the "
                                       "update kernel once for the batch")
     update_syncs = syncs_per_call(lambda: VersionedIndex(st0).update(
@@ -1751,7 +2054,7 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
           "every apply_ops result equals the oracle")
     check(bool(sl.check_foresight_invariant(vi.current)),
           "foresight invariant holds after the update")
-    for name, (_, lag0, k1) in reads.items():
+    for name, (_, lag0, k1, _) in reads.items():
         check_lookups(lag0.found, lag0.vals, traffic[name], current,
                       f"lag-0 search ({name})")
         check_lookups(k1.found, k1.vals, traffic[name], current,
@@ -1762,12 +2065,11 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
           "sorted_live_kv equals the oracle's key set")
     lap("oracle_checks")
 
-    view = vi.read_view(lag=1)
     fused, auth = view.fused, view.auth_keys
     tables = (fused, auth)
     max_steps = vt.default_max_steps(FULL_LEVELS)
     wrapper, plain, source, replaces = KERNELS["validated_traverse"]
-    rows = {}
+    rows, k14_rows = {}, {}
     for name, q in qs.items():
         lag1 = reads[name][0]
         fp = validated_footprint(fused, auth, q, max_steps)
@@ -1778,7 +2080,7 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
         check(err == 0, f"K8 equals its plain version at full size ({name})")
         check(torch.equal(got[0], lag1.node),
               f"K8 node is the lag-1 read's ({name})")
-        ref = search_validated(fused, auth, view.vals, q)
+        ref = reads[name][3]
         keep = ~cut            # a lane cut at max_steps has no equal there
         check(torch.equal(lag1.found[keep], ref.found[keep]),
               f"K8 found equals search_validated ({name})")
@@ -1789,6 +2091,37 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
               f"K8 node equals search_validated where found ({name})")
         g_err = check_key_grouping(q, f"versioned {name}")
         lap("k8_checks")
+        # K14's validated read: every field against its plain version on
+        # the card, steps and gathers against an uncapped replay
+        plain = search_validated_plain(fused, auth, view.vals, q)
+        k14_err = result_err(ref, plain, SEARCH_FIELDS,
+                             f"K14 validated = plain at full size ({name})")
+        fp14 = validated_footprint(fused, auth, q,
+                                   ft.traversal_bound(*fused.shape[:2]))
+        k14_counts = k14_counters(ref, plain, fp14["path"], 2,
+                                  f"validated, {name}")
+        del plain
+        B = q.numel()
+        vals_bytes = int(torch.unique(ref.node[ref.found]).numel()) * 4
+        k14 = k14_row(
+            "validated", lambda: search_validated(fused, auth, view.vals, q),
+            lambda: search_validated_plain(fused, auth, view.vals, q),
+            fp14["distinct_bytes"],
+            B * (4 + 1 + 4 + 4 + 4 * FULL_LEVELS) + 8 + vals_bytes,
+            fp14["loads"], sum(c["validated"] for c in k14_calls.values()),
+            k14_err, None, f"validated, {name}")
+        # the lag-0 reads' K14 launches, each read around its call
+        k14.update(k14_counts, lag0_launches=sum(
+            c["lag0"] for c in k14_calls.values()))
+        emit({"phase": "versioned_full_size_k14", "traffic": name,
+              "n": FULL_N, "levels": FULL_LEVELS, "batch": B, "view": "lag 1",
+              "rows": [k14], "library": "no single PyTorch call gives "
+                                        "search_validated's preds",
+              "mean_path_steps": float(fp14["path"].float().mean()),
+              "max_path_steps": int(fp14["path"].max())})
+        k14_rows[name] = k14
+        del fp14
+        lap("k14")
 
         kernel_ms = time_ms(lambda: vt.validated_traverse(fused, auth, q),
                             KERNEL_REPS)
@@ -1850,7 +2183,7 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
     update_row = monolithic_update_kernel(keys_np, (types, ks, vs), results,
                                           states)
     update_row["launches"] = launches["apply_ops"]
-    return rows, launches["group_by_key"], update_row
+    return rows, launches["group_by_key"], update_row, k14_rows
 
 
 def monolithic_update_kernel(keys_np: np.ndarray, stream: tuple,
@@ -1916,6 +2249,111 @@ def monolithic_update_kernel(keys_np: np.ndarray, stream: tuple,
             "clone_ms": fg["clone_ms"]}
 
 
+def enqueue_ms(fn, reps: int) -> float:
+    """Median host time of ``fn()`` over ``reps`` calls, each from an idle
+    card, nothing waited for: the host's share of a call's event time."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def k14_row(name: str, fn, plain_fn, path_bytes: int, io_bytes: int,
+            path_steps: int, launches: int, err: int, library_ms,
+            what: str) -> dict:
+    """A K14 call at full size: its syncs a call (none allowed), its time
+    (median of ``KERNEL_REPS`` by CUDA events) and its plain version's
+    (``K14_PLAIN_REPS``), the kernel's device time in a profile of five
+    calls, the host's time to enqueue a call (``enqueue_ms``), and its
+    bound: the bytes its paths read
+    (distinct), plus the bytes it reads and writes a query, over the HBM
+    rate, or one compare a step, whichever is longer."""
+    syncs = syncs_per_call(fn)["syncs"]
+    check(syncs == 0, f"{name} makes no synchronising call ({what})")
+    ms = time_ms(fn, KERNEL_REPS)
+    plain_ms = time_ms(plain_fn, K14_PLAIN_REPS)
+    prof = device_breakdown(fn, calls=5, walk="search_walk_kernel")
+    host_ms = enqueue_ms(fn, KERNEL_REPS)
+    bytes_ms = (path_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = path_steps / SCALAR_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    return {"name": f"search_walk/{name}", "route": "cuda",
+            "source": K14_SOURCE, "replaces": KERNELS["search_walk"][3],
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "syncs_per_call": syncs,
+            "bound_share": bound_ms / ms, "path_bytes": path_bytes,
+            "io_bytes": io_bytes,
+            # the kernel's own device time, and the call's other kernels
+            # (the counters' zeroing), from a profile
+            "kernel_device_ms": prof["walk_device_ms"],
+            "kernel_launches_profiled": prof["walk_launches"],
+            "other_device_ms": prof["pass_device_ms"], "enqueue_ms": host_ms}
+
+
+def k14_counters(res: sl.SearchResult, plain: sl.SearchResult,
+                 path: torch.Tensor, g: int, what: str) -> dict:
+    """``steps`` and ``gathers`` beside the plain version's, both checked
+    against a replay's path lengths: the longest path, and g times their
+    sum (int32, wrapping)."""
+    out = {"steps": int(res.steps), "plain_steps": int(plain.steps),
+           "gathers": int(res.gathers), "plain_gathers": int(plain.gathers)}
+    want = int(np.int64(g * int(path.sum())).astype(np.int32))
+    check(out["steps"] == out["plain_steps"] == int(path.max()) and
+          out["gathers"] == out["plain_gathers"] == want,
+          f"K14's steps and gathers are the loop's ({what})")
+    return out
+
+
+def k14_full_size(st: sl.SkipListState, q: torch.Tensor, reads: tuple,
+                  fp: dict, q_np: np.ndarray, keys_np: np.ndarray,
+                  launches: dict, k14_launches: int, library_ms: float,
+                  what: str) -> tuple:
+    """``search`` and ``search_fast`` at full size: the main path's answers
+    (``reads``) against the oracle and against the plain versions on the
+    card (every field), steps and gathers against the replay ``fp``;
+    ``launches``: this traffic's calls' on the main path, by kernel, and
+    ``k14_launches`` the path's ``search`` calls' K14 launches.  Returns
+    ``search``'s row (``k14_row``) and ``search_fast``'s numbers: K1/K2
+    and its pass, so no K14 row (its launches, syncs a call, ms by events,
+    its plain version's and ``torch.searchsorted``'s)."""
+    rec, fast = reads
+    check_lookups(rec.found, rec.vals, q_np, keys_np, f"search ({what})")
+    check_lookups(*fast, q_np, keys_np, f"search_fast ({what})")
+    plain = sl.search_plain(st, q)
+    err = result_err(rec, plain, SEARCH_FIELDS,
+                     f"K14 search = plain at full size ({what})")
+    f_err = result_err(fast, sl.search_fast_plain(st, q), ("found", "vals"),
+                       f"search_fast = plain at full size ({what})")
+    g = 1 if st.foresight else 2
+    counters = k14_counters(rec, plain, fp["path"], g, what)
+    del plain
+    B, L = q.numel(), st.levels
+    vals_bytes = int(torch.unique(rec.node[rec.found]).numel()) * 4
+    row = k14_row("search", lambda: sl.search(st, q),
+                  lambda: sl.search_plain(st, q), fp["distinct_bytes"],
+                  B * (4 + 1 + 4 + 4 + 4 * L) + 8 + vals_bytes,
+                  fp["steps"], k14_launches, err, None, what)
+    row.update(counters)
+    fast_fn = lambda: sl.search_fast(st, q)       # noqa: E731
+    syncs = syncs_per_call(fast_fn)["syncs"]
+    check(syncs == 0, f"search_fast makes no synchronising call ({what})")
+    fast_row = {"kernels": {k: n for k, n in launches["search_fast"].items()
+                            if n}, "max_abs_err": f_err,
+                "syncs_per_call": syncs,
+                "ms": time_ms(fast_fn, KERNEL_REPS),
+                "plain_ms": time_ms(lambda: sl.search_fast_plain(st, q),
+                                    K14_PLAIN_REPS),
+                "library_ms": library_ms}
+    return row, fast_row
+
+
 def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
     """Build at the paper's size, run the main path on each traffic, check,
     time, bound.  K1 and K2 group their lanes by key range: each is also
@@ -1949,6 +2387,30 @@ def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
     syncs = {tname: syncs_per_call(lambda q=q: ops.search_kernel(st, q))
              for tname, q in qs.items()}
     FULL_SYNCS[f"search_kernel[{variant(foresight)}]"] = syncs
+    # The eager reads' main path, every launch counter at 0 just before
+    # it and each call's launches read around it: search on K14,
+    # search_fast on K1/K2 and its pass
+    reset_launches()
+    k14_reads, eager = {}, {}
+    for tname, q in qs.items():
+        rec, n_rec = counted(lambda: sl.search(st, q))
+        fast, n_fast = counted(lambda: sl.search_fast(st, q))
+        check(n_rec["search_walk"] == 1 and n_rec[name] == 0,
+              f"search launched K14 once and no {name} ({tname})")
+        check(n_fast[name] == 1 and n_fast["search_walk"] == 0,
+              f"search_fast launched {name} once and no K14 ({tname})")
+        k14_reads[tname] = (rec, fast)
+        eager[tname] = {"search": n_rec, "search_fast": n_fast}
+    torch.cuda.synchronize()
+    totals = read_launches()
+    check(totals["search_walk"] == sum(e["search"]["search_walk"]
+                                       for e in eager.values()) and
+          totals[name] == sum(e["search_fast"][name]
+                              for e in eager.values()),
+          "the eager reads' launches add up to the counters' totals")
+    # search_fast's walks and passes join the K1/K2 and pass rows
+    for kernel in (name, "group_by_key"):
+        launches[kernel] += totals[kernel]
 
     wrapper, plain, source, replaces = KERNELS[name]
     tables = table_args(st)
@@ -2001,6 +2463,14 @@ def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
               "sector_bytes": fp["sector_bytes"],
               "bound_share": bound_ms / kernel_ms,
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        rows[tname]["k14"], fast_row = k14_full_size(
+            st, q, k14_reads.pop(tname), fp, traffic[tname], keys_np,
+            eager[tname], totals["search_walk"], library_ms,
+            f"{variant(foresight)}, {tname}")
+        emit({"phase": "full_size_k14", "traffic": tname, "n": FULL_N,
+              "levels": FULL_LEVELS, "batch": q.numel(),
+              "rows": [rows[tname]["k14"]], "search_fast": fast_row,
+              "library": "no single PyTorch call gives search's preds"})
         rows[tname]["group"] = {
             "name": "group_by_key", "route": "cuda",
             "source": SHARD_GROUP_CU,
@@ -2704,10 +3174,10 @@ def device_breakdown(fn, top: int = 10, tries: int = 3, calls: int = 1,
     """``calls`` calls of ``fn`` under ``torch.profiler``: the device
     kernels that ran, by device time a call (the ``top`` largest), and
     their sum.  A profile that recorded no device event (the tracer
-    sometimes loses a cycle's events), or with ``walk`` none of that
-    kernel, is taken again, at most ``tries`` times in all.  With ``walk``
-    the sum is also split into that kernel's time and the rest's (a
-    grouping pass)."""
+    sometimes loses a cycle's events), or with ``walk`` fewer launches of
+    that kernel than calls, is taken again, at most ``tries`` times in
+    all.  With ``walk`` the sum is also split into that kernel's time and
+    the rest's (a grouping pass), beside its launches a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2724,13 +3194,15 @@ def device_breakdown(fn, top: int = 10, tries: int = 3, calls: int = 1,
                        if e.device_type == DeviceType.CUDA
                        and e.device_time_total > 0),
                       key=lambda r: -r[1])
-        if rows and (walk is None or any(walk in k for k, *_ in rows)):
+        if rows and (walk is None or sum(n for k, _, n in rows
+                                         if walk in k) >= 1):
             break
     out = {"device_ms": sum(r[1] for r in rows), "launches":
            sum(r[2] for r in rows), "top": [[k[:80], ms, n]
                                             for k, ms, n in rows[:top]]}
     if walk is not None:
         out["walk_device_ms"] = sum(ms for k, ms, _ in rows if walk in k)
+        out["walk_launches"] = sum(n for k, _, n in rows if walk in k)
         out["pass_device_ms"] = out["device_ms"] - out["walk_device_ms"]
         out["calls"] = calls
     return out
@@ -3100,10 +3572,12 @@ def fat_capacity(n: int, width: int) -> int:
 def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
                   foresight: bool, stream: tuple) -> dict:
     """The paper's keys in runs of ``width``: build, the main path through
-    ``search_kernel`` (K1/K2 + K9) and, with ``stream``, one update batch
+    ``search_kernel`` (K1/K2 + K9), ``search`` (K14 with K9 inside, its
+    launches read around the call) and, with ``stream``, one update batch
     through ``apply_ops``; checks, times, the byte bound and, on the
     foresight B = 128 list, K9 alone.  Returns the report; its ``row`` is
-    the kernels-line row and ``k9`` K9's own."""
+    the kernels-line row, ``k9`` K9's own and ``k14`` K14's on this
+    list."""
     stage_s, t_stage = {}, time.perf_counter()
     t_phase = t_stage
 
@@ -3134,6 +3608,9 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
     res = ops.search_kernel(st, q)
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
+    rec, n_rec = counted(lambda: sl.search(st, q))
+    check(n_rec["search_walk"] == 1 and n_rec[f"{name}/fat"] == 0,
+          f"fat{width} search launched K14 once and no {name}")
     report = {"phase": "fat_full_size", "variant": v, "node_width": width,
               "n": FULL_N, "levels": FULL_LEVELS, "capacity": cap,
               "nodes": int(st.bump) - 2, "batch": q.numel(),
@@ -3155,9 +3632,12 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
           f"main path launched {name} with K9 (width {width})")
     check(launches["apply_ops"] == (stream is not None),
           f"the fat{width} update batch launched the update kernel once")
+    check(launches["search_walk"] == n_rec["search_walk"],
+          f"fat{width} K14's launches add up to the counter's total")
 
     check_lookups(res.found, res.vals, q_np, keys_np,
                   f"fat{width} search_kernel")
+    check_lookups(rec.found, rec.vals, q_np, keys_np, f"fat{width} search")
     flat_vals = st.fat_vals.reshape(-1)
     check(torch.equal(flat_vals[res.node[res.found].long()],
                       res.vals[res.found]),
@@ -3219,6 +3699,28 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
         distinct_runs=fp["distinct_runs"], sector_bytes=fp["sector_bytes"],
         sector_bound_ms=(fp["sector_bytes"] + io_bytes)
         / HBM_BYTES_PER_S * 1e3)
+
+    # K14 on the fat list: every field against its plain version on the
+    # card, steps and gathers against the replay; its row beside K1/K2 + K9
+    plain14 = sl.search_plain(st, q)
+    err14 = result_err(rec, plain14, SEARCH_FIELDS,
+                       f"K14 search = plain at full size (fat{width}, {v})")
+    counts14 = k14_counters(rec, plain14, fp["path"], 1 if foresight else 2,
+                            f"fat{width}, {v}")
+    del plain14
+    B, L = q.numel(), st.levels
+    vals14 = int(torch.unique(rec.node[rec.found]).numel()) * 4
+    report["k14"] = k14_row(
+        fat_row_name("search" if foresight else "search/base", width),
+        lambda: sl.search(st, q),
+        lambda: sl.search_plain(st, q), fp["distinct_bytes"],
+        B * (4 + 1 + 4 + 4 + 4 * L) + 8 + vals14,
+        fp["steps"] + fp["compares"], n_rec["search_walk"], err14, None,
+        f"fat{width}, {v}")
+    report["k14"].update(counts14, k1_ms=kernel_ms)
+    report["k14_over_walk_ms"] = report["k14"]["ms"] / kernel_ms
+    del rec
+    lap("k14")
 
     if foresight:
         # K9 alone on the batch's final predecessors: what the postlude
@@ -5008,6 +5510,24 @@ def zipf_queries(keys: np.ndarray, batch: int, a: float = ZIPF_A,
     return keys[(rng.zipf(a, batch) - 1) % len(keys)].astype(np.int32)
 
 
+def k14_kernel_rows(mono: dict, validated: dict) -> list:
+    """K14's kernels-line rows, traffic A: ``search_walk`` (the foresight
+    ``search``; its ``launches`` K14's on every main path, each read
+    around its own call: both full-size variants' ``search`` on both
+    traffics, the versioned lag-0 reads and ``search_validated``), then
+    the base ``search`` and the validated read, each with its own calls'
+    launches.  The fat lists' rows join after their phase."""
+    k14 = {fs: mono[fs]["uniform"].pop("k14") for fs in (True, False)}
+    for fs in (True, False):
+        mono[fs]["zipf"].pop("k14")
+    val = validated["uniform"]
+    subs = [{**k14[False], "name": "search_walk/search/base"}, val]
+    main = {**k14[True], "name": "search_walk"}
+    main["launches"] += (k14[False]["launches"] + val["launches"]
+                         + val["lag0_launches"])
+    return [main, *subs]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5024,6 +5544,7 @@ def run_phases(smi: str, t_start: float) -> None:
     update_kernel_check()
     rebalance_row = rebalance_kernel_check()
     scan_kernel_check()
+    search_walk_check()
     small_sharded_check()
     meshes = init_mesh_group()
     small_mesh_check(meshes)
@@ -5044,8 +5565,8 @@ def run_phases(smi: str, t_start: float) -> None:
                      "batch_order": mono[True][name]["ungrouped_ms"]
                      / mono[False][name]["ungrouped_ms"]}
               for name in traffic}})
-    versioned, versioned_groups, update_row = versioned_full_size(keys_np,
-                                                                  traffic)
+    versioned, versioned_groups, update_row, k14_validated = \
+        versioned_full_size(keys_np, traffic)
     # The kernels line takes traffic A's rows; the pass's launches are those
     # of every path that ran it (K1's, K2's, K8's, and the fat K1's and
     # K2's below).
@@ -5055,7 +5576,8 @@ def run_phases(smi: str, t_start: float) -> None:
         mono[foresight]["zipf"].pop("group")
     key_row["launches"] += versioned_groups
     rows = [mono[True]["uniform"], mono[False]["uniform"],
-            versioned["uniform"], key_row, update_row, rebalance_row]
+            versioned["uniform"], key_row, update_row, rebalance_row,
+            *k14_kernel_rows(mono, k14_validated)]
     ops_ = synchrobench_ops(SHARD_UPDATE_OPS, SEED + 5)
     t0 = time.perf_counter()
     stream = (ops_, *host_oracle(keys_np, *ops_[:2]))
@@ -5135,6 +5657,8 @@ def run_phases(smi: str, t_start: float) -> None:
     update_row["launches"] += sum(f["apply_ops_launches"]
                                   for f in fat.values())
     fat_by_name = {r["name"]: r for r in fat_rows}
+    k14_fat = [f["k14"] for f in fat.values()]
+    by_name["search_walk"]["launches"] += sum(r["launches"] for r in k14_fat)
     k9 = fat[(128, True)]["k9"]
     k9["launches"] = sum(r["launches"] for r in fat_rows)
     check(k9["launches"] > 0, "fat_resolve (K9) launched on the fat paths")
@@ -5156,7 +5680,7 @@ def run_phases(smi: str, t_start: float) -> None:
               for r in fat_rows}})
     for r in fat_rows:
         check(r["launches"] > 0, f"{r['name']} launched on its path")
-    rows += fat_rows + [k9]
+    rows += fat_rows + [k9] + k14_fat
 
     # The data plane and the serving index plane over the same kernels:
     # their main paths' launches join the kernels' rows.

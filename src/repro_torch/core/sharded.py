@@ -58,8 +58,9 @@ from repro_torch.core.skiplist import (HEAD, KEY_MAX, KEY_MIN, NULL_VAL,
                                        build_into, check_foresight_invariant,
                                        fat_scan_step, fill_empty,
                                        node_slots_for, resolve_device,
-                                       run_position, scan_result, search,
-                                       sorted_live_kv, usable_capacity)
+                                       run_position, scan_result,
+                                       search_plain, sorted_live_kv,
+                                       usable_capacity)
 from repro_torch.kernels import apply_ops as apply_kernel
 
 MAX_INDEX = 2**31 - 1
@@ -325,8 +326,8 @@ def range_scan_sharded_plain(shl: ShardedSkipList, lo, hi, max_out: int
     S, dev = shl.n_shards, shl.device
     sid = int(route(shl.boundaries, torch.tensor([lo]))[0])
     shard = shard_view(shl.shards, sid)
-    x = int(search(shard, torch.tensor([lo], dtype=torch.int32,
-                                       device=dev)).preds[0, 0])
+    x = int(search_plain(shard, torch.tensor([lo], dtype=torch.int32,
+                                             device=dev)).preds[0, 0])
     if shl.node_width > 1:
         return _fat_range_scan_sharded(shl, lo, hi, max_out, sid, x)
     keys_out: List[int] = []

@@ -12,8 +12,10 @@ same inputs and seed.
 
 Node 0 is the head sentinel (key ``KEY_MIN``) and node 1 the tail sentinel
 (key ``KEY_MAX``); keys are int32 in the open interval between them.  The
-search functions here are plain tensor code that runs wherever the state
-lives; ``kernels.ops.search_kernel`` is the hand-written-kernel lookup.
+eager reads run on the card as kernels and on the CPU as their plain
+versions (``*_plain``), the host loops here: ``search`` and ``contains``
+as one launch of the recording walk (K14, ``kernels.search_walk``),
+``search_fast`` as the K1/K2 lookup ``kernels.ops.search_kernel``.
 
 Fat-node layout (``node_width`` = B > 1, B-Skiplist style): each node holds
 a sorted run of up to B keys in ``fat_keys [cap, B]`` / ``fat_vals [cap,
@@ -400,10 +402,24 @@ def search(state: SkipListState, queries: torch.Tensor, *,
     Level-synchronous: every query advances right or descends once per
     lock-step iteration.  Foresight needs ONE dependent gather per
     iteration; base needs TWO.  ``preds`` records the last node visited
-    per level (the predecessors array updates use).  Under the fat layout
-    the walk is over nodes and ``node`` is the element-flat id
-    ``owner * node_width + lane`` (``TAIL`` when absent).
+    per level (the predecessors array updates use); ``steps`` and
+    ``gathers`` count the lock-step loop's iterations and dependent
+    gathers.  Under the fat layout the walk is over nodes and ``node`` is
+    the element-flat id ``owner * node_width + lane`` (``TAIL`` when
+    absent).  Runs through ``kernels.search_walk.search_walk``: on the
+    card one launch of the recording walk (K14), nothing read back; on
+    the CPU ``search_plain``.
     """
+    from repro_torch.kernels.search_walk import search_walk
+
+    q = torch.as_tensor(queries, device=state.device).to(torch.int32)
+    return search_walk(state, q.contiguous(), stop_level=stop_level)
+
+
+def search_plain(state: SkipListState, queries: torch.Tensor, *,
+                 stop_level: int = 0) -> SearchResult:
+    """``search``'s host loop (K14's plain version): one lock-step
+    iteration of tensor ops a step, a flag read back after each."""
     q = torch.as_tensor(queries, device=state.device).to(torch.int32)
     x, preds, steps, gathers = _search_loop(state, q, stop_level)
     # The candidate is the successor of the level-``stop_level`` predecessor.
@@ -478,8 +494,25 @@ def search_fast(state: SkipListState, queries: torch.Tensor
     """Read-only lookup: (found [B], vals [B]).
 
     Versus ``search``: no predecessor tracking, and the loop starts at the
-    effective top level.
+    effective top level.  On the card this is the K1/K2 lookup
+    (``kernels.ops.search_kernel``, K9 on the fat layout): the start level
+    does not change the level-0 predecessor, so the answers are the
+    same.  On the CPU ``search_fast_plain``.  Element ids past int32 are
+    refused on either device (``kernels.ops.check_index_range``).
     """
+    from repro_torch.kernels import ops
+
+    ops.check_index_range(state.levels, state.capacity, 1, state.node_width)
+    q = torch.as_tensor(queries, device=state.device).to(torch.int32)
+    if state.keys.device.type == "cpu":
+        return search_fast_plain(state, q)
+    found, vals, _ = ops.search_kernel(state, q.contiguous())
+    return found, vals
+
+
+def search_fast_plain(state: SkipListState, queries: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``search_fast``'s host loop (its plain version)."""
     q = torch.as_tensor(queries, device=state.device).to(torch.int32)
     x = torch.zeros_like(q)
     lvl = effective_top_level(state).expand(q.shape[0])
@@ -552,9 +585,9 @@ def _alloc(state: SkipListState) -> Tuple[int, bool]:
 
 
 def _locate(state: SkipListState, key: int):
-    """(found, node, preds [L]) of one key, through the eager ``search``."""
-    res = search(state, torch.tensor([key], dtype=torch.int32,
-                                     device=state.device))
+    """(found, node, preds [L]) of one key, through ``search_plain``."""
+    res = search_plain(state, torch.tensor([key], dtype=torch.int32,
+                                           device=state.device))
     return bool(res.found[0]), int(res.node[0]), res.preds[0].long()
 
 
@@ -997,8 +1030,8 @@ def range_scan_plain(state: SkipListState, lo, hi, max_out: int
     lo, hi = _to_i32(lo), _to_i32(hi)
     if state.fat_keys is not None:
         return _fat_range_scan(state, lo, hi, max_out)
-    res = search(state, torch.tensor([lo], dtype=torch.int32,
-                                     device=state.device))
+    res = search_plain(state, torch.tensor([lo], dtype=torch.int32,
+                                           device=state.device))
     x = int(res.preds[0, 0])                  # level-0 predecessor of lo
     keys_out, vals_out = [], []
     while len(keys_out) < max_out:

@@ -11,8 +11,10 @@ the paper's torn ``(next, next_key)`` read.
 * level 0: foresight is not used; decide on the authoritative key alone.
 
 For any corruption of the foreseen-key lane the answers equal a base search
-on the authoritative state.  Plain tensor code; K8
-(``kernels.validated_traverse``) is the kernel form of the traversal.
+on the authoritative state.  ``search_validated`` runs K14 on the card
+(``kernels.search_walk``) and its plain version on the CPU; K8
+(``kernels.validated_traverse``) is the capped kernel form of the
+traversal that ``VersionedIndex.search(use_kernel=True)`` takes.
 """
 from __future__ import annotations
 
@@ -31,7 +33,19 @@ def search_validated(fused: torch.Tensor, auth_keys: torch.Tensor,
     pointer lanes must form a valid linked structure over ``auth_keys``.
     ``gathers`` counts 2 per active lane per step (the fused record and
     the validation read).  ``node`` is the key's node where found, else 1.
+    Runs through ``kernels.search_walk.search_walk_validated``: on the card
+    one launch of the recording walk (K14), nothing read back; on the CPU
+    ``search_validated_plain``.
     """
+    from repro_torch.kernels.search_walk import search_walk_validated
+
+    q = torch.as_tensor(queries, device=fused.device).to(torch.int32)
+    return search_walk_validated(fused, auth_keys, vals, q.contiguous())
+
+
+def search_validated_plain(fused: torch.Tensor, auth_keys: torch.Tensor,
+                           vals: torch.Tensor, queries) -> SearchResult:
+    """``search_validated``'s host loop (K14's plain version)."""
     q = torch.as_tensor(queries, device=fused.device).to(torch.int32)
     B = q.shape[0]
     L, cap, _ = fused.shape

@@ -16,8 +16,9 @@
 //                                 (clustered_tile_kernel)
 //   base_clustered_launch      -> base_traverse_clustered
 //                                 (_base_clustered_kernel), K6, the same
-//   fat_resolve (device function, in all six when fat_keys is given; alone
-//   through fat_resolve_launch) -> _fat_resolve, the fat-node postlude, K9
+//   fat_resolve (device function of fat_resolve.cuh, in all six when
+//   fat_keys is given, in K14 (search_walk.cu) too; alone through
+//   fat_resolve_launch) -> _fat_resolve, the fat-node postlude, K9
 // All run the lock-step loop of _traverse_loop: start at the head on level
 // L-1; each step either advances to the successor (its key < q) or descends;
 // stop when below level 0 or after max_steps steps; return the level-0
@@ -122,7 +123,8 @@
 // the owner's B lanes below q; the result is (owner * B + min(pos, B-1), the
 // key there, or KEY_MAX when pos == B).  It is an exact count over every
 // lane, as the reference computes it, not a binary search: that holds on
-// any row.  The warp resolves its lanes' rows together (fat_resolve below):
+// any row.  The warp resolves its lanes' rows together (fat_resolve, in
+// fat_resolve.cuh):
 // g threads a row read it with coalesced loads, 32 / g rows a step, so one
 // load instruction takes whole lines of one or a few rows rather than 16 B
 // of 32 rows (B = 128: one row a step, four 128-B lines; B = 8: 16 rows).
@@ -143,10 +145,12 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "fat_resolve.cuh"
 #include "tile_sort.cuh"
 
 namespace {
 
+using k9::fat_resolve;
 using tile_sort::block_exclusive_scan;
 using tile_sort::block_min_max;
 using tile_sort::order_key;
@@ -154,8 +158,6 @@ using tile_sort::warp_claim;
 
 constexpr int kBlock = 256;
 constexpr int kQblk = 128;   // lanes per block of a clustered plan (QBLK)
-constexpr int kKeyMax = 0x7fffffff;
-constexpr unsigned kFullMask = 0xffffffffu;
 // The tile-sorted K5/K6: a tile of 1024 plan lanes a block, one a thread
 // (tiles of 2048 and 4096 at 1024 threads measured slower on the H100,
 // PERF.md); two blocks an SM, so at most 32 registers a thread (2048
@@ -197,77 +199,6 @@ __device__ __forceinline__ int2 base_walk(const int* __restrict__ nxt,
   }
   const int ptr = __ldg(nxt + (size_t)x);
   return make_int2(ptr, __ldg(keys + (size_t)ptr));
-}
-
-// K9, warp-cooperative.  EVERY lane of the warp calls it together (no lane
-// may have returned: the kernels keep lanes past the batch or not served as
-// need == false, and a full-mask ballot needs all 32).  A lane with need
-// holds (query q, final predecessor x, its level-0 record cand) and the base
-// `fat` of its table [cap, width]; it gets (element-flat node, key).  A lane
-// without need gets (0, 0) and is never resolved.
-//
-// Tiling: a row is read by g threads (the least power of two with 4 * g >=
-// width, at most 32), thread j taking elements 4j..4j+3 of each 4 * g, so
-// one load instruction covers 16 * g contiguous bytes of a row; 32 / g rows
-// are resolved a step (B = 128: one row, four whole 128-B lines; B = 8:
-// sixteen 32-B rows).  Step by step the warp's slots take the lowest lanes
-// still pending, broadcast their row and query (__shfl_sync), load the rows
-// (int4 on a 16-byte-aligned row, else 4-byte loads of the same elements),
-// count each thread's elements < q, sum the count over the group (one
-// __reduce_add_sync) and hand it to the requesting lane.  Last, each lane
-// reads its key at min(pos, width - 1), from a line the warp has just read.
-// Nothing is held across steps but the count, so the walks that call K9
-// keep the registers they had with the per-thread compare it replaced
-// (31-36 a thread; ptxas -v).
-__device__ __forceinline__ int2 fat_resolve(const int* __restrict__ fat,
-                                            int width, int q, int x,
-                                            int2 cand, bool need) {
-  const int owner = (cand.y == q || x == 0) ? cand.x : x;
-  const int* row = fat + (size_t)owner * (size_t)width;
-  const int lane = threadIdx.x & 31;
-  int g = 1;
-  while (g < 32 && 4 * g < width) g <<= 1;
-  const int rows = 32 / g;                      // rows resolved a step
-  const int slot = lane / g, sub = lane & (g - 1);
-  const unsigned gmask = g == 32 ? kFullMask
-                                 : ((1u << g) - 1u) << (slot * g);
-  int pos = 0;
-  unsigned pending = __ballot_sync(kFullMask, need);
-  while (pending) {
-    unsigned m = pending;               // slot s serves the s-th lowest lane
-    for (int s = 0; s < slot; ++s) m &= m - 1;
-    const bool active = m != 0;
-    const int src = active ? __ffs(m) - 1 : lane;
-    const int* r = reinterpret_cast<const int*>(__shfl_sync(
-        kFullMask, reinterpret_cast<unsigned long long>(row), src));
-    const int rq = __shfl_sync(kFullMask, q, src);
-    const bool vec = (reinterpret_cast<uintptr_t>(r) & 15) == 0;
-    int cnt = 0;
-    for (int e = 4 * sub; active && e < width; e += 4 * g) {
-      const int n = min(4, width - e);          // elements held, 1..4
-      int4 v;
-      if (n == 4 && vec) {
-        v = __ldg(reinterpret_cast<const int4*>(r + e));
-      } else {
-        v.x = __ldg(r + e);
-        v.y = n > 1 ? __ldg(r + e + 1) : 0;
-        v.z = n > 2 ? __ldg(r + e + 2) : 0;
-        v.w = n > 3 ? __ldg(r + e + 3) : 0;
-      }
-      cnt += (v.x < rq) + (n > 1 && v.y < rq) + (n > 2 && v.z < rq) +
-             (n > 3 && v.w < rq);
-    }
-    cnt = __reduce_add_sync(gmask, cnt);                 // the group's sum
-    // lane i was served by the slot of its rank among the pending lanes
-    const int rank = __popc(pending & ((1u << lane) - 1u));
-    const int got = __shfl_sync(kFullMask, cnt, min(rank, rows - 1) * g);
-    if (((pending >> lane) & 1u) && rank < rows) pos = got;
-    for (int s = 0; s < rows; ++s) pending &= pending - 1;
-  }
-  if (!need) return make_int2(0, 0);
-  const int pos_c = min(pos, width - 1);
-  return make_int2(owner * width + pos_c,
-                   pos < width ? __ldg(row + pos_c) : kKeyMax);
 }
 
 // Lane i's result goes to out_idx[i], or to i when out_idx is null.
