@@ -56,8 +56,9 @@ Phases, one JSON line each:
    ``range_scan.GATHER_FROM`` (lane 0's walk); keys, vals and counts
    equal, the sharded scans equal numpy;
 4e. ``search_walk_check``: the recording search walk (K14,
-   ``csrc/search_walk.cu``, ``kernels.search_walk``) under ``search`` and
-   ``search_validated``, and ``search_fast`` (K1/K2 on the card), against
+   ``csrc/search_walk.cu``, ``kernels.search_walk``, on lanes grouped by
+   ``group_by_key``: one pass and one K14 launch a call) under ``search``
+   and ``search_validated``, and ``search_fast`` (K1/K2 on the card), against
    their plain versions on the card and the CPU's runs, every field
    (found, vals, node, preds, steps, gathers) equal: 4000-key lists at
    node widths 1, 8 and 128, both
@@ -81,11 +82,17 @@ Phases, one JSON line each:
    grouped beforehand (``grouped_walk_ms``), and five calls are profiled
    (the pass's device time against the walk's).  Then the eager reads'
    main path, each call's launches read around it: ``search`` on both
-   traffics (one K14 launch each) and ``search_fast`` (one K1/K2 launch,
-   no K14), held against the oracle and their plain versions on the card
-   (every field; ``steps`` and ``gathers`` also against the replay's path
-   lengths), no synchronising call, times, the plain versions' and
-   ``torch.searchsorted``'s (for ``search_fast``), ``search``'s bound;
+   traffics (one key pass and one K14 launch each) and ``search_fast``
+   (one pass and one K1/K2 launch, no K14), held against the oracle and
+   their plain versions on the card (every field; ``steps`` and
+   ``gathers`` also against the replay's path lengths), no synchronising
+   call, times, the plain versions' and ``torch.searchsorted``'s (for
+   ``search_fast``), ``search``'s bound; K14 also apart (``k14_times``):
+   the walk alone on lanes grouped beforehand (checked equal to the call)
+   and the pass alone, by CUDA events, the resident blocks an SM, and the
+   walk's and the pass's device time in profiles of one call each, each
+   counted only where it saw all of the call's launches (a row no
+   profile saw whole says "not measured" in its ``profile``);
 6. updates and versioned reads at the same size: the foresight build in a
    ``VersionedIndex``, ``update`` with 65536 ops of fig3's upd=50% mix
    through the update kernel (each result held against a host oracle,
@@ -324,7 +331,7 @@ Phases, one JSON line each:
    launches of K1-K6 as rows of their own, ``fat_resolve``,
    ``search_kernel_mesh`` (K10), ``group_by_shard`` (its launches on the
    four sharded main paths and the store's dense lookups) and
-   ``group_by_key`` (its launches on the K1, K2, K8, fat K1/K2,
+   ``group_by_key`` (its launches on the K1, K2, K8, K14, fat K1/K2,
    monolithic store and training main paths) and ``apply_ops``, the
    update kernel (its launches on every update main path; its times those
    of the monolithic 64-op batch that the plain version also ran, the
@@ -442,6 +449,10 @@ SHARD_GROUP_CU = "src/repro_torch/csrc/shard_group.cu"
 FT_PY = "src/repro/kernels/foresight_traverse.py"
 K14_SOURCE = "src/repro_torch/csrc/search_walk.cu"
 K14_PLAIN_REPS = 3          # the host loops: 20-60 ms a call at full size
+# the kernels a K14 call launches: the counters' zeroing, group_by_key's
+# seven (a min/max pass, then a histogram, scan and scatter a digit), the
+# walk
+K14_CALL_KERNELS = 9
 KERNELS = {   # name -> (wrapper, plain version, source, TPU kernel replaced)
     "foresight_traverse": (ft.foresight_traverse, ft.foresight_traverse_plain,
                            TRAVERSE_CU, f"{FT_PY}:303"),
@@ -1566,17 +1577,20 @@ def result_err(got, want, fields, what: str) -> int:
 
 def k14_against_plain(st: dict, q_np: np.ndarray, what: str,
                       stop: int = 0) -> int:
-    """``search`` (at ``stop``, one K14 launch) and ``search_fast`` (one
-    K1/K2 launch) on the card, against their plain versions on the same
-    card state and the CPU's run on the CPU state; the max abs error, 0."""
+    """``search`` (at ``stop``, one key pass and one K14 launch) and
+    ``search_fast`` (one pass and one K1/K2 launch) on the card, against
+    their plain versions on the same card state and the CPU's run on the
+    CPU state; the max abs error, 0."""
     q = {dev: torch.from_numpy(q_np).to(dev) for dev in (DEVICE, "cpu")}
     got, n_got = counted(lambda: sl.search(st[DEVICE], q[DEVICE],
                                            stop_level=stop))
     fast, n_fast = counted(lambda: sl.search_fast(st[DEVICE], q[DEVICE]))
     walk = kernel_name(st[DEVICE])
-    check(n_got["search_walk"] == 1 and n_fast["search_walk"] == 0 and
-          n_fast[walk] == 1, f"search launched K14 once and search_fast "
-                             f"{walk} once ({what})")
+    check(n_got["search_walk"] == 1 and n_got["group_by_key"] == 1 and
+          n_got[walk] == 0 and n_fast["search_walk"] == 0 and
+          n_fast[walk] == 1 and n_fast["group_by_key"] == 1,
+          f"search launched the key pass and K14 once each and search_fast "
+          f"the pass and {walk} once each ({what})")
     err = max(
         result_err(got, sl.search_plain(st[DEVICE], q[DEVICE],
                                         stop_level=stop),
@@ -1724,10 +1738,11 @@ def search_walk_check() -> None:
     for label, args in views.items():
         cpu_args = [t.cpu() for t in args]
         q = torch.from_numpy(q_np).to(DEVICE)
-        before = sw.search_walk.launches
-        got = search_validated(*args, q)
-        check(sw.search_walk.launches == before + 1,
-              f"search_validated launched K14 ({label})")
+        got, n = counted(lambda: search_validated(*args, q))
+        check(n["search_walk"] == 1 and n["group_by_key"] == 1 and
+              n["validated_traverse"] == 0,
+              f"search_validated launched the key pass and K14 once each "
+              f"({label})")
         note(max(result_err(got, search_validated_plain(*args, q),
                             SEARCH_FIELDS, f"K14 validated = plain on the "
                                            f"card ({label})"),
@@ -2026,9 +2041,10 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
         lag0, n_lag0 = counted(lambda: vi.search(q, lag=0))
         val, n_val = counted(lambda: search_validated(
             view.fused, view.auth_keys, view.vals, q))
-        check(n_lag0["search_walk"] == 1 and n_val["search_walk"] == 1,
-              f"the lag-0 read and search_validated launched K14 once "
-              f"each ({name})")
+        check(n_lag0["search_walk"] == 1 and n_val["search_walk"] == 1 and
+              n_lag0["group_by_key"] == 1 and n_val["group_by_key"] == 1,
+              f"the lag-0 read and search_validated launched the key pass "
+              f"and K14 once each ({name})")
         k14_calls[name] = {"lag0": n_lag0["search_walk"],
                            "validated": n_val["search_walk"]}
         reads[name] = (vi.search(q, lag=1, use_kernel=True), lag0,
@@ -2047,8 +2063,8 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
         *update_args))
     check(update_syncs["syncs"] == 0, "VersionedIndex.update makes no "
                                       "synchronising call at full size")
-    check(launches["group_by_key"] == 2 * len(qs),
-          "versioned path ran group_by_key once a K8 and a K1 call")
+    check(launches["group_by_key"] == 4 * len(qs),
+          "versioned path ran group_by_key once a K8, a K1 and a K14 call")
 
     check(np.array_equal(results.cpu().numpy(), want_results),
           "every apply_ops result equals the oracle")
@@ -2106,6 +2122,7 @@ def versioned_full_size(keys_np: np.ndarray, traffic: dict) -> dict:
         k14 = k14_row(
             "validated", lambda: search_validated(fused, auth, view.vals, q),
             lambda: search_validated_plain(fused, auth, view.vals, q),
+            (2, (fused, None, auth, view.vals, None, None), q, 0),
             fp14["distinct_bytes"],
             B * (4 + 1 + 4 + 4 + 4 * FULL_LEVELS) + 8 + vals_bytes,
             fp14["loads"], sum(c["validated"] for c in k14_calls.values()),
@@ -2263,25 +2280,23 @@ def enqueue_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def k14_row(name: str, fn, plain_fn, path_bytes: int, io_bytes: int,
-            path_steps: int, launches: int, err: int, library_ms,
-            what: str) -> dict:
-    """A K14 call at full size: its syncs a call (none allowed), its time
-    (median of ``KERNEL_REPS`` by CUDA events) and its plain version's
-    (``K14_PLAIN_REPS``), the kernel's device time in a profile of five
-    calls, the host's time to enqueue a call (``enqueue_ms``), and its
-    bound: the bytes its paths read
-    (distinct), plus the bytes it reads and writes a query, over the HBM
-    rate, or one compare a step, whichever is longer."""
+def k14_row(name: str, fn, plain_fn, lanes: tuple, path_bytes: int,
+            io_bytes: int, path_steps: int, launches: int, err: int,
+            library_ms, what: str) -> dict:
+    """A K14 call at full size: its syncs a call (none allowed), its times
+    (``k14_times``; ``lanes`` = (mode, tables, q, stop_level) of the
+    call), its plain version's (``K14_PLAIN_REPS``), and its bound: the
+    bytes its paths read (distinct), plus the bytes it reads and writes a
+    query, over the HBM rate, or one compare a step, whichever is
+    longer."""
     syncs = syncs_per_call(fn)["syncs"]
     check(syncs == 0, f"{name} makes no synchronising call ({what})")
-    ms = time_ms(fn, KERNEL_REPS)
+    times = k14_times(fn, what, lanes)
     plain_ms = time_ms(plain_fn, K14_PLAIN_REPS)
-    prof = device_breakdown(fn, calls=5, walk="search_walk_kernel")
-    host_ms = enqueue_ms(fn, KERNEL_REPS)
     bytes_ms = (path_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = path_steps / SCALAR_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    ms = times.pop("ms")
     return {"name": f"search_walk/{name}", "route": "cuda",
             "source": K14_SOURCE, "replaces": KERNELS["search_walk"][3],
             "launches": launches, "max_abs_err": err, "ms": ms,
@@ -2289,12 +2304,75 @@ def k14_row(name: str, fn, plain_fn, path_bytes: int, io_bytes: int,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "syncs_per_call": syncs,
             "bound_share": bound_ms / ms, "path_bytes": path_bytes,
-            "io_bytes": io_bytes,
-            # the kernel's own device time, and the call's other kernels
-            # (the counters' zeroing), from a profile
-            "kernel_device_ms": prof["walk_device_ms"],
-            "kernel_launches_profiled": prof["walk_launches"],
-            "other_device_ms": prof["pass_device_ms"], "enqueue_ms": host_ms}
+            "io_bytes": io_bytes, **times}
+
+
+def k14_tables(st: sl.SkipListState) -> tuple:
+    """(mode, tables) of ``search`` on ``st``, as ``sw._walk`` takes
+    them."""
+    return (0 if st.foresight else 1,
+            (st.fused, st.nxt, st.keys, st.vals, st.fat_keys, st.fat_vals))
+
+
+def k14_times(fn, what: str, lanes: tuple = None,
+              kernels: int = K14_CALL_KERNELS) -> dict:
+    """A K14 call's times: by CUDA events (``ms``, the median of
+    ``KERNEL_REPS``), the host's time to enqueue it (``enqueue_ms``), and
+    the walk's, the key pass's and the rest's (the counters' zeroing)
+    device time in profiles of one call each (``walk_profile``, ``kernels``
+    launches a call).  With ``lanes`` = (mode, tables, q, stop_level) of
+    the call, also its two launches apart by events: the key pass alone
+    (``pass_ms``) and the walk alone on the lanes that pass grouped
+    (``walk_ms``, ``sw._walk``, checked equal to the call in every field),
+    and the walk's resident blocks an SM (the occupancy calculator)."""
+    out = {"ms": time_ms(fn, KERNEL_REPS)}
+    prof = walk_profile(fn, "search_walk_kernel", kernels)
+    out.update({"kernel_device_ms": prof["walk_device_ms"],
+                "pass_device_ms": prof["pass_device_ms"],
+                "other_device_ms": prof["other_device_ms"],
+                "profile": prof["profile"], "profiled_calls": prof["calls"],
+                "profiles_lost": prof["lost"]})
+    out["enqueue_ms"] = enqueue_ms(fn, KERNEL_REPS)
+    if lanes is not None:
+        mode, tables, q, stop = lanes
+        q_s, perm = sg.group_by_key(q)
+        walk = lambda: sw._walk(mode, tables, q_s, perm, stop)
+        result_err(walk(), fn(), SEARCH_FIELDS,
+                   f"K14's walk alone equals the call ({what})")
+        out["walk_ms"] = time_ms(walk, KERNEL_REPS)
+        out["pass_ms"] = time_ms(lambda: sg.group_by_key(q), KERNEL_REPS)
+        L = (tables[0] if tables[1] is None else tables[1]).shape[0]
+        out["blocks_per_sm"] = sw.blocks_per_sm(mode, L)
+    return out
+
+
+def walk_profile(fn, walk: str, kernels: int, calls: int = 5,
+                 profiles: int = 40) -> dict:
+    """Profiles of one call of ``fn`` each (``device_breakdown``), taken
+    until ``calls`` of them are whole, ``profiles`` at most: a whole one
+    saw the ``walk`` kernel's launch and ``kernels`` launches in all (the
+    tracer sometimes loses a few; ``lost`` lists the launches each other
+    profile saw).  Over the whole ones, the median device ms of that
+    kernel, of the key pass (``key_span_kernel`` and the ``group_*``
+    kernels) and of the rest.  With none whole the times are None and
+    ``profile`` says "not measured"."""
+    parts, lost = [], []
+    while len(parts) < calls and len(parts) + len(lost) < profiles:
+        prof = device_breakdown(fn, tries=1, walk=walk, kernels=kernels)
+        if not prof["whole"]:
+            lost.append(prof["launches"])
+            continue
+        pass_ms = sum(ms for k, ms, _ in prof["top"] if walk not in k and
+                      ("key_span_kernel" in k or "group_" in k))
+        parts.append((prof["walk_device_ms"], pass_ms,
+                      prof["pass_device_ms"] - pass_ms))
+    med = ([statistics.median(col) for col in zip(*parts)] if parts
+           else [None] * 3)
+    return {"walk_device_ms": med[0], "pass_device_ms": med[1],
+            "other_device_ms": med[2], "calls": len(parts), "lost": lost,
+            "profile": (f"{len(parts)} whole calls" if parts else
+                        f"not measured: none of {len(lost)} profiles saw "
+                        f"all {kernels} launches")}
 
 
 def k14_counters(res: sl.SearchResult, plain: sl.SearchResult,
@@ -2337,7 +2415,8 @@ def k14_full_size(st: sl.SkipListState, q: torch.Tensor, reads: tuple,
     B, L = q.numel(), st.levels
     vals_bytes = int(torch.unique(rec.node[rec.found]).numel()) * 4
     row = k14_row("search", lambda: sl.search(st, q),
-                  lambda: sl.search_plain(st, q), fp["distinct_bytes"],
+                  lambda: sl.search_plain(st, q), (*k14_tables(st), q, 0),
+                  fp["distinct_bytes"],
                   B * (4 + 1 + 4 + 4 + 4 * L) + 8 + vals_bytes,
                   fp["steps"], k14_launches, err, None, what)
     row.update(counters)
@@ -2395,10 +2474,14 @@ def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
     for tname, q in qs.items():
         rec, n_rec = counted(lambda: sl.search(st, q))
         fast, n_fast = counted(lambda: sl.search_fast(st, q))
-        check(n_rec["search_walk"] == 1 and n_rec[name] == 0,
-              f"search launched K14 once and no {name} ({tname})")
-        check(n_fast[name] == 1 and n_fast["search_walk"] == 0,
-              f"search_fast launched {name} once and no K14 ({tname})")
+        check(n_rec["search_walk"] == 1 and n_rec[name] == 0 and
+              n_rec["group_by_key"] == 1,
+              f"search launched the key pass and K14 once each and no "
+              f"{name} ({tname})")
+        check(n_fast[name] == 1 and n_fast["search_walk"] == 0 and
+              n_fast["group_by_key"] == 1,
+              f"search_fast launched the pass and {name} once each and no "
+              f"K14 ({tname})")
         k14_reads[tname] = (rec, fast)
         eager[tname] = {"search": n_rec, "search_fast": n_fast}
     torch.cuda.synchronize()
@@ -2408,7 +2491,8 @@ def full_size(keys_np: np.ndarray, traffic: dict, foresight: bool) -> dict:
           totals[name] == sum(e["search_fast"][name]
                               for e in eager.values()),
           "the eager reads' launches add up to the counters' totals")
-    # search_fast's walks and passes join the K1/K2 and pass rows
+    # search_fast's walks join the K1/K2 row, its and search's passes the
+    # pass's row
     for kernel in (name, "group_by_key"):
         launches[kernel] += totals[kernel]
 
@@ -3170,14 +3254,16 @@ def mesh_exchange(mx: mi.MeshShardedIndex, q: torch.Tensor, mesh) -> list:
 
 
 def device_breakdown(fn, top: int = 10, tries: int = 3, calls: int = 1,
-                     walk: str = None) -> dict:
+                     walk: str = None, kernels: int = 0) -> dict:
     """``calls`` calls of ``fn`` under ``torch.profiler``: the device
     kernels that ran, by device time a call (the ``top`` largest), and
     their sum.  A profile that recorded no device event (the tracer
-    sometimes loses a cycle's events), or with ``walk`` fewer launches of
-    that kernel than calls, is taken again, at most ``tries`` times in
-    all.  With ``walk`` the sum is also split into that kernel's time and
-    the rest's (a grouping pass), beside its launches a call."""
+    sometimes loses a cycle's events), with ``walk`` fewer launches of
+    that kernel than calls, or with ``kernels`` another number of kernel
+    launches a call, is taken again, at most ``tries`` times in all
+    (``whole`` says whether the last was kept).  With ``walk`` the sum is
+    also split into that kernel's time and the rest's (a grouping pass),
+    beside its launches a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -3194,12 +3280,15 @@ def device_breakdown(fn, top: int = 10, tries: int = 3, calls: int = 1,
                        if e.device_type == DeviceType.CUDA
                        and e.device_time_total > 0),
                       key=lambda r: -r[1])
-        if rows and (walk is None or sum(n for k, _, n in rows
-                                         if walk in k) >= 1):
+        whole = bool(rows) and (
+            walk is None or sum(n for k, _, n in rows if walk in k) >= 1
+        ) and (not kernels or sum(n for *_, n in rows) == kernels)
+        if whole:
             break
     out = {"device_ms": sum(r[1] for r in rows), "launches":
            sum(r[2] for r in rows), "top": [[k[:80], ms, n]
-                                            for k, ms, n in rows[:top]]}
+                                            for k, ms, n in rows[:top]],
+           "whole": whole}
     if walk is not None:
         out["walk_device_ms"] = sum(ms for k, ms, _ in rows if walk in k)
         out["walk_launches"] = sum(n for k, _, n in rows if walk in k)
@@ -3609,8 +3698,10 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
     rec, n_rec = counted(lambda: sl.search(st, q))
-    check(n_rec["search_walk"] == 1 and n_rec[f"{name}/fat"] == 0,
-          f"fat{width} search launched K14 once and no {name}")
+    check(n_rec["search_walk"] == 1 and n_rec[f"{name}/fat"] == 0 and
+          n_rec["group_by_key"] == 1,
+          f"fat{width} search launched the key pass and K14 once each and "
+          f"no {name}")
     report = {"phase": "fat_full_size", "variant": v, "node_width": width,
               "n": FULL_N, "levels": FULL_LEVELS, "capacity": cap,
               "nodes": int(st.bump) - 2, "batch": q.numel(),
@@ -3713,7 +3804,8 @@ def fat_full_size(keys_np: np.ndarray, q_np: np.ndarray, width: int,
     report["k14"] = k14_row(
         fat_row_name("search" if foresight else "search/base", width),
         lambda: sl.search(st, q),
-        lambda: sl.search_plain(st, q), fp["distinct_bytes"],
+        lambda: sl.search_plain(st, q), (*k14_tables(st), q, 0),
+        fp["distinct_bytes"],
         B * (4 + 1 + 4 + 4 + 4 * L) + 8 + vals14,
         fp["steps"] + fp["compares"], n_rec["search_walk"], err14, None,
         f"fat{width}, {v}")

@@ -17,8 +17,9 @@ the block size of each launch and the constants come from ``csrc/``):
 * ``SMEM-BUDGET`` — static shared memory plus the dynamic amount of the
   launcher's formula at its largest documented parameter (``sort_pass``
   at ``MAX_GROUP_SHARDS`` shards; ``group_by_key``'s digit passes at
-  2^7 and 2^6 buckets) above 49,152 bytes for a kernel that does not opt
-  in, or 232,448 for one that does;
+  2^7 and 2^6 buckets; K14's staged preds rows at its 32 levels)
+  above 49,152 bytes for a kernel that does not opt in, or 232,448 for one
+  that does;
 * ``BUDGET-STALE`` — the record's hash is not today's (a kernel edit
   without a fresh record) or, on the card, the live report differs from
   the record.
@@ -289,9 +290,10 @@ def _group_constants(csrc: Path) -> Dict[str, int]:
 
 def dynamic_smem(csrc: Path, shards: Optional[int] = None
                  ) -> Dict[str, Tuple[int, bool, str]]:
-    """``sort_pass``'s dynamic shared memory (``shard_group.cu``): by
-    kernel, (bytes at the largest parameter, whether the launcher opts
-    in above the default, the parameter).  Shard mode takes ``shards``
+    """``sort_pass``'s dynamic shared memory (``shard_group.cu``) and that
+    of K14's staged preds rows (``search_walk.cu``, ``kBlock`` rows of
+    ``levels`` ints): by kernel, (bytes at the largest parameter, whether
+    the launcher opts in above the default, the parameter).  Shard mode takes ``shards``
     (the documented ``MAX_GROUP_SHARDS``), key mode the larger of its two
     digit passes (2^kLowDigitBits and 2^(kKeyBucketBits -
     kLowDigitBits) buckets); the scan kernel serves both."""
@@ -308,7 +310,12 @@ def dynamic_smem(csrc: Path, shards: Optional[int] = None
     def scatter(s):
         return 2 * counters(s) + 3 * c["kTile"] * 4
 
+    w = constants((csrc / "search_walk.cu").read_text())
+    staged = w["kBlock"] * w["kMaxLevels"] * 4
     return {
+        **{f"search_walk_kernel<{mode}>": (
+            staged, False, f"levels = {w['kMaxLevels']}")
+           for mode in (w["kForesight"], w["kBase"], w["kValidated"])},
         "group_histogram_kernel<false>": (counters(S), False,
                                           f"shards = {S}"),
         "group_histogram_kernel<true>": (counters(key_buckets), False,

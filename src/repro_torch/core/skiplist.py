@@ -14,8 +14,9 @@ Node 0 is the head sentinel (key ``KEY_MIN``) and node 1 the tail sentinel
 (key ``KEY_MAX``); keys are int32 in the open interval between them.  The
 eager reads run on the card as kernels and on the CPU as their plain
 versions (``*_plain``), the host loops here: ``search`` and ``contains``
-as one launch of the recording walk (K14, ``kernels.search_walk``),
-``search_fast`` as the K1/K2 lookup ``kernels.ops.search_kernel``.
+as the key pass and one launch of the recording walk (K14,
+``kernels.search_walk``), ``search_fast`` as the K1/K2 lookup
+``kernels.ops.search_kernel``.
 
 Fat-node layout (``node_width`` = B > 1, B-Skiplist style): each node holds
 a sorted run of up to B keys in ``fat_keys [cap, B]`` / ``fat_vals [cap,
@@ -407,8 +408,8 @@ def search(state: SkipListState, queries: torch.Tensor, *,
     gathers.  Under the fat layout the walk is over nodes and ``node`` is
     the element-flat id ``owner * node_width + lane`` (``TAIL`` when
     absent).  Runs through ``kernels.search_walk.search_walk``: on the
-    card one launch of the recording walk (K14), nothing read back; on
-    the CPU ``search_plain``.
+    card the key pass and one launch of the recording walk (K14), nothing
+    read back; on the CPU ``search_plain``.
     """
     from repro_torch.kernels.search_walk import search_walk
 

@@ -34,8 +34,8 @@ def search_validated(fused: torch.Tensor, auth_keys: torch.Tensor,
     ``gathers`` counts 2 per active lane per step (the fused record and
     the validation read).  ``node`` is the key's node where found, else 1.
     Runs through ``kernels.search_walk.search_walk_validated``: on the card
-    one launch of the recording walk (K14), nothing read back; on the CPU
-    ``search_validated_plain``.
+    the key pass and one launch of the recording walk (K14), nothing read
+    back; on the CPU ``search_validated_plain``.
     """
     from repro_torch.kernels.search_walk import search_walk_validated
 

@@ -83,10 +83,12 @@ _SIGNATURES = {
     # lo_mark, seed, max_steps (the rebalance passes, rebalance.cu)
     "rebalance_launch": [_P] * 26 + [_I, _I, _I, _LL, _I, _LL, _LL, _I, _F,
                                      _F, _LL, _LL, _P],
-    # fused, nxt, keys, vals, fat_keys, fat_vals, queries, found, out_vals,
-    # node, preds, counters | mode, batch, levels, cap, width, stop_level,
-    # max_steps (the recording search walk, search_walk.cu)
-    "search_walk_launch": [_P] * 12 + [_I, _LL, _I, _LL, _I, _I, _LL, _P],
+    # fused, nxt, keys, vals, fat_keys, fat_vals, out_idx, queries, found,
+    # out_vals, node, preds, counters | mode, batch, levels, cap, width,
+    # stop_level, max_steps (the recording search walk, search_walk.cu);
+    # its occupancy query (mode, levels, int* blocks)
+    "search_walk_launch": [_P] * 13 + [_I, _LL, _I, _LL, _I, _I, _LL, _P],
+    "search_walk_blocks_per_sm": [_I, _I, _P],
     # fused, nxt, keys, vals, fat_keys, fat_vals, nlen, boundaries, lo, hi,
     # out_keys, out_vals, out_count, front | scans, shards, levels, cap,
     # width, max_out, raw, max_steps (the range scans, range_scan.cu)

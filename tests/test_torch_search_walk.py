@@ -11,8 +11,10 @@ corrupted for the validated read.
 
 Also a model of the kernel's own walk in numpy (one lane at a time, each
 with its own loop; ``steps`` as the longest path and ``gathers`` as g
-times the paths' sum) against the same reference answers, and the
-wrappers' refusals.  The card's cases are in
+times the paths' sum), in batch order and in the card's order (lanes
+grouped by ``group_by_key``, results stored at ``perm[i]``, ``gathers``
+folded a warp and a block at a time, past 2^31 too), against the same
+reference answers, and the wrappers' refusals.  The card's cases are in
 ``tests/test_torch_search_walk_gpu.py``.
 """
 import jax
@@ -27,6 +29,7 @@ from repro_torch.convert import state_from_numpy
 from repro_torch.core import skiplist as tsl
 from repro_torch.core import validated as tval
 from repro_torch.kernels import search_walk as sw
+from repro_torch.kernels.shard_group import group_by_key_plain, key_buckets
 
 KEY_MAX = 2**31 - 1
 KEY_MIN = -2**31
@@ -243,51 +246,87 @@ def test_key_max_is_found_with_null_val(ref, no_launch, width):
 # the kernel's walk, modelled one lane at a time
 # ---------------------------------------------------------------------------
 
-def _lane_walks(arrays, q, mode, stop, start=None):
-    """What K14 computes, lane by lane as its threads do: each lane's own
-    loop from ``start`` (default L - 1) down to ``stop_level``, its preds
-    row, its path length, then the result; ``steps`` is the longest path
-    and ``gathers`` g times the paths' sum (int32, wrapping)."""
+def _walk_one(arrays, qb, mode, stop, start):
+    """One lane's own loop from ``start`` down to ``stop_level``: its
+    preds row, its path length and its result (found, val, node)."""
     fused, nxt = arrays.get("fused"), arrays.get("nxt")
     keys, vals = arrays["keys"], arrays["vals"]
     fat_k, fat_v = arrays.get("fat_keys"), arrays.get("fat_vals")
     L = (fused if fused is not None else nxt).shape[0]
-    out = {f: [] for f in ("found", "vals", "node", "preds", "path")}
-    for qb in q.tolist():
-        x, lvl, path, row = 0, L - 1 if start is None else start, 0, [0] * L
-        while lvl >= stop:
-            path += 1
-            if mode == "base":
-                ptr = int(nxt[lvl, x])
-                go = keys[ptr] < qb
-            else:
-                ptr, fk = (int(v) for v in fused[lvl, x])
-                go = (keys[ptr] < qb and (lvl == 0 or fk < qb)
-                      if mode == "validated" else fk < qb)
-            if go:
-                x = ptr
-            else:
-                row[lvl] = x
-                lvl -= 1
-        cand = int(nxt[stop, x] if mode == "base" else fused[stop, x, 0])
-        ck = int(keys[cand] if mode != "foresight" else fused[stop, x, 1])
-        slot, hit, src = cand, ck == qb, vals
-        if fat_k is not None:
-            width = fat_k.shape[1]
-            owner = cand if (ck == qb or x == 0) else x
-            pos = int((fat_k[owner] < qb).sum())
-            slot = owner * width + min(pos, width - 1)
-            hit, src = pos < width and fat_k.reshape(-1)[slot] == qb, \
-                fat_v.reshape(-1)
-        out["found"].append(bool(hit))
-        out["vals"].append(int(src[slot]) if hit else -1)
-        out["node"].append(slot if hit else 1)
-        out["preds"].append(row)
-        out["path"].append(path)
-    path = np.asarray(out["path"], np.int64)
+    x, lvl, path, row = 0, start, 0, [0] * L
+    while lvl >= stop:
+        path += 1
+        if mode == "base":
+            ptr = int(nxt[lvl, x])
+            go = keys[ptr] < qb
+        else:
+            ptr, fk = (int(v) for v in fused[lvl, x])
+            go = (keys[ptr] < qb and (lvl == 0 or fk < qb)
+                  if mode == "validated" else fk < qb)
+        if go:
+            x = ptr
+        else:
+            row[lvl] = x
+            lvl -= 1
+    cand = int(nxt[stop, x] if mode == "base" else fused[stop, x, 0])
+    ck = int(keys[cand] if mode != "foresight" else fused[stop, x, 1])
+    slot, hit, src = cand, ck == qb, vals
+    if fat_k is not None:
+        width = fat_k.shape[1]
+        owner = cand if (ck == qb or x == 0) else x
+        pos = int((fat_k[owner] < qb).sum())
+        slot = owner * width + min(pos, width - 1)
+        hit, src = pos < width and fat_k.reshape(-1)[slot] == qb, \
+            fat_v.reshape(-1)
+    return (bool(hit), int(src[slot]) if hit else -1, slot if hit else 1,
+            row, path)
+
+
+def _kernel_gathers(path, g):
+    """``gathers`` as K14 folds it, lanes in launch order: an unsigned sum
+    of each warp's 32 paths, of each block's 8 warps, g times each block's
+    sum added last block first (the atomics land in any order); int32."""
+    p = np.zeros(-(-path.size // 256) * 256, np.uint64)
+    p[:path.size] = path
+    warps = p.reshape(-1, 8, 32).sum(2) % 2**32        # [blocks, 8]
+    total = 0
+    for bs in (warps.sum(1) % 2**32)[::-1]:
+        total = (total + g * int(bs)) % 2**32
+    return int(np.array(total, np.uint32).view(np.int32))
+
+
+def _lane_walks(arrays, q, mode, stop, start=None, grouped=False):
+    """What K14 computes, lane by lane as its threads do: each lane's own
+    loop from ``start`` (default L - 1) down to ``stop_level``, its preds
+    row, its path length, then the result; ``steps`` is the longest path
+    and ``gathers`` g times the paths' sum (int32, wrapping).  With
+    ``grouped`` the lanes are the wrapper's: lane ``i`` walks
+    ``q[perm[i]]`` (``perm`` from ``group_by_key_plain``, the card's key
+    pass) and stores its result and preds row at ``perm[i]``, and
+    ``gathers`` is folded as the kernel folds it (``_kernel_gathers``).  A
+    lane's walk depends on its query alone, so lanes of one key share one
+    walk here."""
+    L = (arrays["fused"] if "fused" in arrays else arrays["nxt"]).shape[0]
+    perm = (group_by_key_plain(torch.from_numpy(q)).numpy() if grouped
+            else np.arange(q.size))
+    out = {"found": np.zeros(q.size, bool),
+           "vals": np.zeros(q.size, np.int32),
+           "node": np.zeros(q.size, np.int32),
+           "preds": np.zeros((q.size, L), np.int32)}
+    path = np.zeros(q.size, np.int64)              # in lane order
+    walks = {}
+    for i, b in enumerate(perm):
+        qb = int(q[b])
+        if qb not in walks:
+            walks[qb] = _walk_one(arrays, qb, mode, stop,
+                                  L - 1 if start is None else start)
+        found, val, node, row, path[i] = walks[qb]
+        out["found"][b], out["vals"][b], out["node"][b] = found, val, node
+        out["preds"][b] = row
     g = 1 if mode == "foresight" else 2
     steps = int(path.max()) if path.size else 0
-    gathers = np.int64(g * path.sum()).astype(np.int32)
+    gathers = (_kernel_gathers(path, g) if grouped
+               else int(np.int64(g * path.sum()).astype(np.int32)))
     return out, steps, gathers
 
 
@@ -319,6 +358,73 @@ def test_the_kernels_lane_walk_gives_the_references_answers(ref, mode,
         fast = ref.search_fast(width, mode == "foresight", width == 1, q)
         np.testing.assert_array_equal(lanes["found"], np.asarray(fast[0]))
         np.testing.assert_array_equal(lanes["vals"], np.asarray(fast[1]))
+
+
+def _repeated(keys, seed, batch=160):
+    """A batch of heavily repeated keys: 160 lanes of four keys (one
+    absent), most of them the first, and the edges; most lanes fall in
+    one key bucket."""
+    rng = np.random.default_rng(seed)
+    pick = np.array([*rng.choice(keys, 3), int(keys[-1]) + 1])
+    edge = [KEY_MAX, int(keys[0]), int(keys[0]) - 1, KEY_MIN + 1]
+    return np.concatenate([rng.choice(pick, batch, p=[0.7, 0.1, 0.1, 0.1]),
+                           edge]).astype(np.int32)
+
+
+@pytest.mark.parametrize("batch", ["mixed", "repeated"])
+@pytest.mark.parametrize("mode,width", [
+    *((m, w) for m in ("foresight", "base") for w in WIDTHS),
+    ("validated", 1)])
+def test_the_kernels_grouped_lane_walk_gives_the_references_answers(
+        ref, mode, width, batch):
+    """The lanes as the card walks them: in ``group_by_key``'s order, each
+    result and preds row stored at ``perm[i]``, ``gathers`` folded as the
+    kernel folds it; every field equals the reference's."""
+    churn = width == 1
+    keys, rstate, _ = ref.state(width, mode != "base", churn=churn)
+    arrays = _arrays(rstate)
+    if mode == "validated":
+        arrays["fused"] = _corrupt(arrays["fused"], 0.4, 6)
+    q = (_queries if batch == "mixed" else _repeated)(keys, 60 + width)
+    qt = torch.from_numpy(q)
+    assert (group_by_key_plain(qt).numpy() != np.arange(q.size)).any()
+    if batch == "repeated":
+        assert np.bincount(key_buckets(qt).numpy()).max() > q.size // 2
+    for stop in ((0,) if mode == "validated" else (0, 2)):
+        lanes, steps, gathers = _lane_walks(arrays, q, mode, stop,
+                                            grouped=True)
+        want = (_validated(jnp.asarray(arrays["fused"]), rstate.keys,
+                           rstate.vals, jnp.asarray(q))
+                if mode == "validated" else
+                ref.search(width, mode == "foresight", churn, stop, q))
+        for f in ("found", "vals", "node", "preds"):
+            np.testing.assert_array_equal(lanes[f],
+                                          np.asarray(getattr(want, f)),
+                                          err_msg=f)
+        assert steps == int(want.steps) and gathers == int(want.gathers)
+
+
+def test_the_gathers_wrap_does_not_depend_on_the_lane_order():
+    """g * sum(path) past 2^31: 131,328 lanes of three keys at the end of
+    a one-level base list of 8191 keys (paths of 8190-8192 steps, g = 2).
+    The reference's int32 sum wraps; the grouped lanes' fold (unsigned, a
+    warp, a block, the blocks last first) gives the same int32 as the
+    batch order's sum, and every other field is the reference's."""
+    n = 8191
+    keys = np.arange(1, n + 1, dtype=np.int32) * 4
+    rstate = sl.build(jnp.asarray(keys), jnp.asarray(keys + 1),
+                      capacity=n + 16, levels=1, foresight=False, seed=0)
+    q = np.full(131328, KEY_MAX - 1, np.int32)
+    q[::3], q[1::3] = keys[-1], keys[-2]
+    want = _search(rstate, jnp.asarray(q), stop_level=0)
+    lanes, steps, gathers = _lane_walks(_arrays(rstate), q, "base", 0,
+                                        grouped=True)
+    assert 2 * q.size * (steps - 2) > 2**31 and int(want.gathers) < 0
+    for f in ("found", "vals", "node", "preds"):
+        np.testing.assert_array_equal(lanes[f], np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert steps == int(want.steps) and gathers == int(want.gathers)
+    assert gathers == _lane_walks(_arrays(rstate), q, "base", 0)[2]
 
 
 # ---------------------------------------------------------------------------

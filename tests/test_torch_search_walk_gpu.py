@@ -1,8 +1,10 @@
 """The recording search walk (K14, ``csrc/search_walk.cu``) on the card
 against its plain versions, bit for bit in every output.
 
-``search``, ``contains`` and ``search_validated`` launch K14 once a call on
-the card (``kernels.search_walk``, counted in ``search_walk.launches``);
+``search``, ``contains`` and ``search_validated`` run K1/K2/K8's key pass
+(``group_by_key``) and launch K14 once a call on the card
+(``kernels.search_walk``, counted in ``search_walk.launches``), on lanes
+grouped by key that write at their batch index;
 ``search_fast`` launches K1 or K2 (``kernels.ops.search_kernel``) and no
 K14.  All run their host loops on the CPU.  Each card result must equal
 the plain version run on the same card state and the CPU run on the same
@@ -11,8 +13,10 @@ state built there: found, vals, node, preds, steps and gathers.  Cases: foresigh
 kernel (K11: node ids out of key order, freed slots reused), a 2^16-key
 list after 4096 mixed ops, an empty batch, ``KEY_MAX`` queries, the
 validated read on 40% corrupt foreseen keys and on a lag-1 view, a strided
-query view; and a corrupt table, whose walk must end in the kernel's
-trap.
+query view, Zipf batches full of repeated keys, batches of 1, 257 and
+1000 lanes, levels below ``stop_level`` in memory left dirty, a list of
+``MAX_LEVELS`` levels and one of more (refused); and a corrupt table,
+whose walk must end in the kernel's trap.
 
 Needs a CUDA card, nvcc and no JAX; every test here is marked ``gpu`` and
 skips without a card.  Run on a card machine with
@@ -34,6 +38,7 @@ from repro_torch.core import validated as tval
 from repro_torch.core.versioned import VersionedIndex
 from repro_torch.kernels import foresight_traverse as ft
 from repro_torch.kernels import search_walk as sw
+from repro_torch.kernels import shard_group as sg
 
 pytestmark = pytest.mark.gpu
 DEVICES = ("cuda", "cpu")
@@ -103,9 +108,11 @@ def _check_search(st, q_np, stop=0):
     """K14 on the card against the plain version on the card and the CPU;
     returns the card's result."""
     q = {dev: torch.from_numpy(q_np).to(dev) for dev in DEVICES}
-    before = sw.search_walk.launches
+    before = sw.search_walk.launches, sg.group_by_key.launches
     got = tsl.search(st["cuda"], q["cuda"], stop_level=stop)
-    assert sw.search_walk.launches == before + 1
+    assert (sw.search_walk.launches, sg.group_by_key.launches) == (
+        before[0] + 1, before[1] + 1)
+    before = before[0]
     _same(got, tsl.search_plain(st["cuda"], q["cuda"], stop_level=stop),
           FIELDS)
     _same(got, tsl.search(st["cpu"], q["cpu"], stop_level=stop), FIELDS)
@@ -240,6 +247,100 @@ def test_a_strided_query_view_reads_as_its_copy(cuda, foresight):
         table = (scalar.fused, scalar.keys, scalar.vals)
         _same(tval.search_validated(*table, q),
               tval.search_validated(*table, flat), FIELDS)
+
+
+def _zipf(keys, batch, seed, a=1.2):
+    """Zipf(a) over the keys by rank (benchmarks/common.py:55-60): most
+    lanes repeat a few keys and fall in one key bucket."""
+    rng = np.random.default_rng(seed)
+    return keys[(rng.zipf(a, batch) - 1) % len(keys)].astype(np.int32)
+
+
+def test_one_call_is_one_key_pass_and_one_walk(cuda):
+    """Each recording read is one group_by_key and one K14 launch, and no
+    K1 / K2 / K8 launch."""
+    keys, st = _states(8, True)
+    _, base = _states(1, False)
+    views = _views("lag1")[1]["cuda"]
+    q = torch.from_numpy(_queries(keys, 12)).cuda()
+    walks = (ft.foresight_traverse, ft.base_traverse)
+    for read in (lambda: tsl.search(st["cuda"], q),
+                 lambda: tsl.search(base["cuda"], q, stop_level=2),
+                 lambda: tsl.contains(st["cuda"], q),
+                 lambda: tval.search_validated(*views, q)):
+        before = (sw.search_walk.launches, sg.group_by_key.launches,
+                  *(w.launches for w in walks))
+        read()
+        assert (sw.search_walk.launches, sg.group_by_key.launches,
+                *(w.launches for w in walks)) == (
+            before[0] + 1, before[1] + 1, *before[2:])
+
+
+@pytest.mark.parametrize("width", [1, 8, 128])
+@pytest.mark.parametrize("foresight", [True, False])
+def test_a_zipf_batch_of_repeated_keys(cuda, foresight, width):
+    keys, st = _states(width, foresight, n=2000, levels=12)
+    q = _zipf(keys, 4096, 3 + width)
+    assert np.unique(q).size < q.size // 3 and \
+        np.unique(q, return_counts=True)[1].max() > q.size // 8
+    for stop in (0, 2):
+        _check_search(st, q, stop)
+
+
+def test_a_zipf_batch_validated(cuda):
+    keys, views = _views("lag1")
+    q = {dev: torch.from_numpy(_zipf(keys, 4096, 8)).to(dev)
+         for dev in DEVICES}
+    got = tval.search_validated(*views["cuda"], q["cuda"])
+    _same(got, tval.search_validated_plain(*views["cuda"], q["cuda"]),
+          FIELDS)
+    _same(got, tval.search_validated(*views["cpu"], q["cpu"]), FIELDS)
+
+
+@pytest.mark.parametrize("batch", [1, 257, 1000])
+@pytest.mark.parametrize("foresight", [True, False])
+def test_batches_of_one_and_past_a_block(cuda, foresight, batch):
+    """B = 1 and batches that leave the last block part full."""
+    keys, st = _states(8, foresight)
+    q = _queries(keys, batch, batch=batch + 4)[-batch:]
+    assert q.size == batch
+    _check_search(st, q)
+    _, views = _views("corrupt")
+    qv = {dev: torch.from_numpy(q).to(dev) for dev in DEVICES}
+    _same(tval.search_validated(*views["cuda"], qv["cuda"]),
+          tval.search_validated(*views["cpu"], qv["cpu"]), FIELDS)
+
+
+@pytest.mark.parametrize("stop", [1, 3])
+def test_levels_below_stop_are_zero_in_dirty_memory(cuda, stop):
+    """preds comes from torch.empty: the kernel writes the levels below
+    stop_level itself, whatever the allocator hands back."""
+    keys, st = _states(1, True, n=2000, levels=12)
+    q = _queries(keys, 40 + stop, batch=2048)
+    for rows in (q.size, q.size + 4, 2 * q.size):
+        [torch.full((rows, 12), -7, dtype=torch.int32, device="cuda")
+         for _ in range(4)]                      # freed, left dirty
+        got = _check_search(st, q, stop)
+        assert not got.preds[:, :stop].any()
+        assert got.preds[:, stop:].any()
+
+
+@pytest.mark.parametrize("foresight", [True, False])
+def test_the_level_cap_of_the_staged_rows(cuda, foresight):
+    """A warp stages its rows in shared memory: a list of ``MAX_LEVELS``
+    levels reads as the CPU's, one of more is refused before any launch;
+    the walk keeps 8 blocks an SM at 27 levels."""
+    L = sw.MAX_LEVELS
+    keys, st = _states(8 if foresight else 1, foresight, n=2000, levels=L)
+    got = _check_search(st, _queries(keys, 41), 2)
+    assert got.preds.shape[1] == L
+    _, tall = _states(1, foresight, levels=L + 1)
+    q = torch.from_numpy(_queries(keys, 42)).cuda()
+    before = sw.search_walk.launches, sg.group_by_key.launches
+    with pytest.raises(ValueError, match=f"at most {L} levels"):
+        tsl.search(tall["cuda"], q)
+    assert (sw.search_walk.launches, sg.group_by_key.launches) == before
+    assert sw.blocks_per_sm(0 if foresight else 1, 27) == 8
 
 
 _CORRUPT = """
